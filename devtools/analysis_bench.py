@@ -1,5 +1,5 @@
 """Sub-stage bisection inside analyze_block_batched (same methodology
-as stage_bench.py: full scan-over-T pipelines, deltas between variants).
+as dec_bench.py: full scan-over-T pipelines, deltas between variants).
 
 Usage: python devtools/analysis_bench.py [stage ...]
 Stages: wc mdct psy imp rank

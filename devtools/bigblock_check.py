@@ -2,11 +2,10 @@
 encode -> decode roundtrip at mono bs16384 and bs32768 (reference
 envelope ulcEncoder.c:21), with compile-time figures.
 
-Round-3 VERDICT gap: these sizes were config-accepted and
-transform-tested but no end-to-end encode->decode had ever executed
-(the 16-branch window switch was feared to blow up compile). The
-encode rides the Pallas kernel path (P <= 32768 envelope); the decode
-at P > 8192 rides the scan FSM.
+These sizes are config-accepted and transform-tested; this runs the
+whole encode->decode path at them (the 16-branch window switch is the
+compile-time risk). Both directions ride the Pallas kernels on a GPU
+(P <= 32768 envelope).
 
 Usage: python devtools/bigblock_check.py [16384|32768|both]
 """
@@ -95,13 +94,9 @@ def main():
     sys.path.insert(0, ROOT)
     import jax
 
-    try:
-        jax.config.update(
-            "jax_compilation_cache_dir", os.path.join(ROOT, ".jax_cache")
-        )
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
-    except Exception:
-        pass
+    from ulcx.utils.compileopts import enable_compile_cache
+
+    enable_compile_cache()
 
     mode = sys.argv[1] if len(sys.argv) > 1 else "both"
     sizes = {"16384": [16384], "32768": [32768]}.get(mode, [16384, 32768])

@@ -1,10 +1,9 @@
 """B-scaling sweep: run the full bench encode path at several batch sizes.
 
-VERDICT r2 #1: analysis is near-B-invariant (per-fused-kernel ~100us fixed
-cost), so throughput should rise near-linearly with B until kernel/assemble
-stages dominate. Nobody has measured B>512 on the chip. This harness runs the
-exact bench.py encode path at a list of batch sizes and prints one line per
-point.
+If analysis cost is near-B-invariant (a fixed cost per fused kernel),
+throughput rises near-linearly with B until the kernel/assemble stages
+dominate. This harness runs the exact bench.py encode path at a list of
+batch sizes and prints one line per point.
 
 Usage: python devtools/bscale_bench.py [B ...]   (default: 512 1024 2048)
 """
@@ -23,14 +22,9 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import jax
 
-    try:
-        cache_dir = os.path.join(
-            os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
-        )
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
-    except Exception:
-        pass
+    from ulcx.utils.compileopts import enable_compile_cache
+
+    enable_compile_cache()
 
     import jax.numpy as jnp
     from ulcx.parallel.mesh import batch_encode

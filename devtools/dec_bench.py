@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -38,7 +39,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     from bench import make_corpus
 
-    cache = f"/tmp/dec_bench_streams_{b}_{t}_{n}.npz"
+    cache = os.path.join(tempfile.gettempdir(), f"dec_bench_streams_{b}_{t}_{n}.npz")
     if os.path.exists(cache):
         z = np.load(cache)
         streams_np, win = z["streams"], int(z["win"])

@@ -1,8 +1,6 @@
-"""Isolate the single-file CLI's HOST-side floor (VERDICT r4 item 4).
+"""Isolate the single-file CLI's HOST-side floor.
 
-NOTES.md round-4 measured ~40 s of user CPU for a 180 s WAV through
-encode_tool with the device side at ~5 s — this harness replays the
-tool's exact host pipeline (WAV read -> reshape/convert -> reader
+This harness replays the encode tool's exact host pipeline (WAV read -> reshape/convert -> reader
 thread -> queue -> [stubbed device call] -> np.asarray fetch ->
 pack_blocks -> file write -> stats) with the jitted encode replaced by
 a host-side identity producing same-shaped outputs, so every second
@@ -15,6 +13,7 @@ from __future__ import annotations
 
 import os
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -23,7 +22,7 @@ sys.path.insert(0, ROOT)
 
 def main():
     seconds = float(sys.argv[1]) if len(sys.argv) > 1 else 180.0
-    wd = sys.argv[2] if len(sys.argv) > 2 else "/tmp/ulcx_host_floor"
+    wd = sys.argv[2] if len(sys.argv) > 2 else os.path.join(tempfile.gettempdir(), "ulcx_host_floor")
     os.makedirs(wd, exist_ok=True)
 
     import numpy as np

@@ -5,11 +5,13 @@ stacks vs the (1-block-delayed) input. Used to calibrate the
 test_oracle_quality thresholds and PARITY.md numbers.
 """
 
+import os
 import sys
 import numpy as np
 
-sys.path.insert(0, "/root/repo")
-sys.path.insert(0, "/root/repo/tests")
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
+sys.path.insert(0, os.path.join(_ROOT, "tests"))
 
 import oracle
 from test_oracle_quality import _material, _encode_ulcx, _decode_ulcx
@@ -50,7 +52,7 @@ def run(n, c, mode, t=4, transients=True, kind=None, **kw):
         e = p[1:] - ref
         return 10 * np.log10(np.sum(ref**2) / max(np.sum(e**2), 1e-30))
 
-    # per-block decomposition (VERDICT r2 #9): how much of the f32-vs-
+    # per-block decomposition: how much of the f32-vs-
     # f64 deviation is byte-identical blocks vs tie-flipped coding
     # decisions, and does any flip degrade quality?
     n_match = 0

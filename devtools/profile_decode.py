@@ -11,6 +11,7 @@ from __future__ import annotations
 import glob
 import os
 import sys
+import tempfile
 from collections import defaultdict
 
 import numpy as np
@@ -18,7 +19,7 @@ import numpy as np
 
 def main():
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    out = sys.argv[1] if len(sys.argv) > 1 else "/tmp/ulcx_dtrace"
+    out = sys.argv[1] if len(sys.argv) > 1 else os.path.join(tempfile.gettempdir(), "ulcx_dtrace")
     import jax
     import jax.numpy as jnp
     from ulcx.parallel.mesh import batch_decode, batch_encode
@@ -73,7 +74,7 @@ def main():
         open(sorted(paths)[-1], "rb").read()
     )
     for plane in pd.planes:
-        if "TPU" not in plane.name:
+        if "/device:GPU" not in plane.name:
             continue
         total = defaultdict(float)
         count = defaultdict(int)

@@ -9,6 +9,7 @@ from __future__ import annotations
 import glob
 import os
 import sys
+import tempfile
 from collections import defaultdict
 
 import numpy as np
@@ -16,17 +17,12 @@ import numpy as np
 
 def main():
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    out = sys.argv[1] if len(sys.argv) > 1 else "/tmp/ulcx_trace"
+    out = sys.argv[1] if len(sys.argv) > 1 else os.path.join(tempfile.gettempdir(), "ulcx_trace")
     import jax
 
-    try:
-        jax.config.update(
-            "jax_compilation_cache_dir",
-            os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"),
-        )
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
-    except Exception:
-        pass
+    from ulcx.utils.compileopts import enable_compile_cache
+
+    enable_compile_cache()
     import jax.numpy as jnp
     from ulcx.parallel.mesh import batch_encode
     from ulcx.utils.config import CodecConfig

@@ -1,7 +1,7 @@
 // ulcx native I/O runtime: bulk PCM<->float conversion and nybble
 // stream packing, C ABI for ctypes binding.
 //
-// TPU-native counterpart of the reference's host-side L3 layer
+// Batched counterpart of the reference's host-side L3 layer
 // (tools/WavIO_Helper.c:31-87 semantics: identical scalings, lrintf
 // rounding, clamping) — the hot host loops of the batched data loader
 // live here instead of NumPy when the shared library is present.

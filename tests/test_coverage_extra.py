@@ -76,7 +76,7 @@ def test_large_p_scan_fallback(rng):
     from ulcx.codec.encoder import _use_kernel
 
     cfg = CodecConfig(rate_hz=44100, n_chan=8, block_size=8192)
-    assert not _use_kernel(cfg, 8)    # P=65536 over the cap
+    assert not _use_kernel(cfg)    # P=65536 over the cap
     cfg2 = CodecConfig(rate_hz=44100, n_chan=2, block_size=4096)
     assert _roundtrip(cfg2, rng, t=4, kbps=128.0) > 5.0
 
@@ -86,11 +86,10 @@ def test_kernel_gate_p32768():
     bs32768, stereo bs16384, 8ch bs4096): segdelta is a 16-bit segment
     length (a full-block bs32768 segment = 0x8000 needs it), state ncp
     16 bits (sentinel 65535 > P-1), and the keep test is
-    threshold-based so no rank field bounds P; small batches pad to
-    the 128-lane width. Gate + field-packing bounds; byte-equality at
-    the envelope shapes runs on hardware (devtools/p8192_check.py
-    [mono8192|stereo8192|mono16384] — interpret mode at P>=8192 x
-    B=128 is too slow for CI)."""
+    threshold-based so no rank field bounds P; any batch pads to the
+    kernel's lane width. Gate + field-packing bounds; byte-equality at
+    the envelope shapes runs on the GPU (chip_smoke.py phase 3 —
+    interpret mode at P>=8192 x B=128 is too slow for CI)."""
     from ulcx.codec.encoder import _use_kernel
     from ulcx.bitstream.fast_encode import _prep_tables
 
@@ -99,8 +98,7 @@ def test_kernel_gate_p32768():
         cfg = CodecConfig(
             rate_hz=44100, n_chan=c, block_size=n, use_pallas="on"
         )
-        assert _use_kernel(cfg, 128), (c, n)
-        assert _use_kernel(cfg, 8), (c, n)  # pads to 128 lanes
+        assert _use_kernel(cfg), (c, n)
     # use_pallas='on' FORCES the kernels: an out-of-envelope shape is a
     # loud ValueError (mirrors the noise_run_window='gap' gate), never a
     # silent scan fallback. 'auto' falls back quietly.
@@ -108,16 +106,11 @@ def test_kernel_gate_p32768():
         rate_hz=44100, n_chan=8, block_size=8192, use_pallas="on"
     )
     with pytest.raises(ValueError, match="outside the kernel envelope"):
-        _use_kernel(cfg2, 128)  # P=65536 over the cap
-    cfg3 = CodecConfig(
-        rate_hz=44100, n_chan=2, block_size=2048, use_pallas="on"
-    )
-    with pytest.raises(ValueError, match="batch % 8"):
-        _use_kernel(cfg3, 3)  # batch not a multiple of 8
+        _use_kernel(cfg2)  # P=65536 over the cap
     cfg2a = CodecConfig(
         rate_hz=44100, n_chan=8, block_size=8192, use_pallas="auto"
     )
-    assert not _use_kernel(cfg2a, 128)  # auto: quiet fallback
+    assert not _use_kernel(cfg2a)  # auto: quiet fallback
 
     segdelta, _, _, _ = _prep_tables(32768, 1)
     assert segdelta.max() == 32768.0   # needs the 16th bit, unclipped

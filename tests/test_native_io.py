@@ -1,6 +1,5 @@
 """Native C++ I/O runtime vs NumPy reference implementations."""
 
-import subprocess
 import sys
 
 import numpy as np
@@ -9,17 +8,7 @@ import pytest
 from ulcx.io import native
 
 
-def _ensure_built():
-    if not native.available():
-        import os
-
-        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-        subprocess.run(["make", "-C", os.path.join(root, "native")], check=True)
-        native._LIB = None
-    return native.available()
-
-
-@pytest.mark.skipif(not _ensure_built(), reason="native lib unavailable")
+@pytest.mark.skipif(not native.available(), reason="native lib unavailable")
 def test_native_conversions_match_numpy(rng):
     # compare against the pure-NumPy formulas (bypassing the native hook)
     from ulcx.io.wavio import _float_to_pcm24, _pcm24_to_float
@@ -45,7 +34,7 @@ def test_native_conversions_match_numpy(rng):
     assert np.allclose(back24, _pcm24_to_float(got24), atol=0)
 
 
-@pytest.mark.skipif(not _ensure_built(), reason="native lib unavailable")
+@pytest.mark.skipif(not native.available(), reason="native lib unavailable")
 def test_native_pack_blocks(rng):
     t, stride = 5, 64
     data = rng.integers(0, 255, (t, stride), dtype=np.uint8)

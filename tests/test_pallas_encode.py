@@ -106,7 +106,7 @@ def test_search_materialize_fused(rng):
 def test_kernel_padding_matches_scan(rng):
     """Non-128 batches (here 24 -> padded to 128 lanes) are byte-exact
     vs the scan path — pad lanes parse as inert zero planes and are
-    sliced off (fast_encode._pad128 retired the narrow v1/v2 layouts)."""
+    sliced off)."""
     from ulcx.bitstream.fast_encode import materialize_fast
 
     nb = 24
@@ -141,16 +141,16 @@ def test_kernel_padding_matches_scan(rng):
 
 
 def test_kernel_v3_matches_scan(rng):
-    """128-stream transposed kernels (candidates in sublanes, no input
+    """128-stream transposed kernels (candidates in rows, no input
     replication) == scan path (sizes + bytes)."""
     from ulcx.bitstream.fast_encode import (
-        cand_count,
         materialize_fast,
         rate_search_fast,
     )
+    from ulcx.bitstream.pallas_encode3 import N_CAND
 
     nb = 128
-    assert cand_count(nb, 2 * N) == 8
+    assert N_CAND == 8
     wcs = [int(w) for w in rng.choice([0x10, 0x28, 0x59, 0xFB, 0x3A, 0x6C], nb)]
     batched, bds, _ = _batched_blocks(rng, wcs)
     fb = prepare_fast(batched, CFG)
@@ -195,24 +195,3 @@ def test_kernel_v3_matches_scan(rng):
     np.testing.assert_array_equal(np.asarray(n_f), np.asarray(n_sel))
     np.testing.assert_array_equal(np.asarray(s_f), np.asarray(s_sel))
     np.testing.assert_array_equal(np.asarray(b_f), np.asarray(b_sel))
-
-
-def test_chunk_loop_unroll_equivalence():
-    """_chunk_loop must visit indices 0..CHUNK-1 in order for every
-    unroll setting (1 = fori, partial = nested, full = straight-line);
-    the partial path is what ULCX_KERNEL_UNROLL=N selects on hardware."""
-    import jax.numpy as jnp
-    from ulcx.bitstream import pallas_encode3 as pe3
-
-    def body(i, carry):
-        acc, order = carry
-        return acc + i, order * 1000003 % 2147483647 + i
-
-    init = (jnp.int32(0), jnp.int32(7))
-    want = None
-    for u in (1, 8, 16, pe3.CHUNK):
-        acc, order = jax.jit(lambda c: pe3._chunk_loop(body, c, u))(init)
-        got = (int(acc), int(order))
-        if want is None:
-            want = got
-        assert got == want, (u, got, want)

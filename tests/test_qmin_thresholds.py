@@ -37,3 +37,15 @@ def test_qmin_exact_on_boundaries_and_randoms():
             mine = q >= qmin
             bad = np.nonzero(truth != mine)[0]
             assert len(bad) == 0, (kind, q, m[bad[:5]], qmin[bad[:5]])
+
+
+def test_exp2i_is_exact_power_of_two():
+    """The scan and kernel encode paths scale by _exp2i(q): exactly 2**q
+    for every quantizer q, so no backend's exp2 rounding can move a
+    coefficient across a quantizer boundary."""
+    from ulcx.bitstream.encode import _exp2i
+
+    q = np.arange(32, dtype=np.int32)
+    got = np.asarray(_exp2i(jnp.asarray(q)))
+    np.testing.assert_array_equal(got, np.ldexp(np.float32(1), q))
+    assert got.dtype == np.float32

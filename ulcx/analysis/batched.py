@@ -62,8 +62,8 @@ def _psy_noise_batched(mdct, mdst, window_ctrl, cfg: CodecConfig):
     if cfg.use_psychoacoustics:
         # per-coefficient masking: within a class, coef k maps to line
         # k//2 of that class's layout — a 2x repeat, then a 4-way class
-        # select as a where-chain (gathers are slow on TPU; 3 selects
-        # beat a [B, N, 4] stack + take_along_axis)
+        # select as a where-chain (in place of a [B, N, 4] stack +
+        # take_along_axis)
         mask_coef = jnp.repeat(mask_cls[0], 2, axis=-1)
         for k in range(1, 4):
             mask_coef = jnp.where(
@@ -138,9 +138,8 @@ def analyze_stream_batched(carry: EncoderCarry, blocks: jnp.ndarray, cfg: CodecC
     Only the window-control chain is recurrent across blocks (transient
     filter EMAs + the one-block lookahead); it runs as a T-step scan on
     small state. Everything heavy (transforms, psy, ranks) then runs
-    ONCE over the flattened [B*T] batch — on this backend per-dispatch
-    overhead dominates these stages, so folding T out of the scan is a
-    near-T-fold win (NOTES.md round-2 log)."""
+    ONCE over the flattened [B*T] batch, so their per-step fixed
+    costs are paid once instead of T times."""
     from ulcx.analysis.block import ms_transform
 
     n = cfg.block_size

@@ -76,7 +76,7 @@ def line_interp_tables(m: int, rate_hz: int):
 def _interp_onehots(m: int, rate_hz: int):
     """One-hot [25, m] selection matrices for the left/right band of
     each line (f32 matmul with exactly one nonzero per output column is
-    exact, and beats a gather on TPU)."""
+    exact)."""
     il, ir, frac = line_interp_tables(m, rate_hz)
     eye = np.eye(N_BARK_BANDS, dtype=np.float32)
     return eye[:, il].copy(), eye[:, ir].copy(), frac
@@ -128,10 +128,9 @@ def _band_sums(data, log_data, beg, end):
     formed as differences of whole-spectrum running totals — in f32 a
     quiet band's peak_w comes out ~1e-7 * total instead of its own
     ~1e-13, and log(peak_w) is then off by up to ~15 nepers (measured
-    on polyphonic material; round-5 NOTES). Instead each band sums only
-    its OWN [beg, end) lines through a 0/1 [m, 25] matmul — positive
-    same-magnitude in-band accumulation, relative error ~1e-7, and the
-    MXU does the reduction."""
+    on polyphonic material). Instead each band sums only its OWN
+    [beg, end) lines through a 0/1 [m, 25] matmul — positive
+    same-magnitude in-band accumulation, relative error ~1e-7."""
     oh = jnp.asarray(_band_onehot(data.shape[-1], tuple(beg), tuple(end)))
     stacked = jnp.stack([log_data, log_data * data, data], axis=-2)
     hi = lax.Precision.HIGHEST

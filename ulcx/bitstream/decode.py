@@ -1,6 +1,6 @@
 """Vectorized bitstream decoder.
 
-TPU-native re-architecture of reference ulcDecoder.c:99-197. The
+Batched re-architecture of reference ulcDecoder.c:99-197. The
 reference walks nybbles in a data-dependent loop writing coefficients
 one at a time; here decoding is three phases, each batch-friendly:
 

@@ -1,6 +1,6 @@
 """Vectorized bitstream encode pass (size + materialization).
 
-TPU-native re-architecture of reference ULCi_EncodePass
+Batched re-architecture of reference ULCi_EncodePass
 (libulc/ulcEncoder_Encode.c). The reference serializes nybbles in one
 sequential greedy walk; rate control then re-runs that walk ~16 times
 per block. Here the pass is decomposed so almost everything is
@@ -55,6 +55,17 @@ def _cq_unsigned(v):
     """Companded quantize (unsigned), f32 in -> i32 out."""
     q = jnp.floor(jnp.float32(0.5) + jnp.sqrt(jnp.maximum(v - jnp.float32(0.25), 0.0)))
     return jnp.where(v >= 0.5, q, 0.0).astype(jnp.int32)
+
+
+def _exp2i(q):
+    """2^q as f32 for integer q in [0, 31], built in the exponent field.
+
+    Exact on every backend; jnp.exp2 of an integer-valued float is not
+    exact on every GPU lowering, and one ulp moves a coefficient across
+    a quantizer boundary."""
+    return lax.bitcast_convert_type(
+        ((jnp.clip(q, 0, 31) + 127) << 23).astype(jnp.int32), jnp.float32
+    )
 
 
 def _cq_coef(v, limit):
@@ -148,9 +159,8 @@ def prepare_block(blk: AnalyzedBlock, cfg: CodecConfig) -> BlockData:
 
 
 def _zone_scan(bd: BlockData, kept):
-    # xs packed into ONE array: each scan step costs one contiguous
-    # dynamic-slice DMA instead of three (the scans are DMA-latency
-    # bound on TPU, not compute bound).
+    # xs packed into ONE array: each scan step reads one contiguous
+    # row instead of three.
     p_tot = bd.absc.shape[-1]
     is_seg_start = jnp.arange(p_tot) == bd.seg_start
     packed = jnp.stack(
@@ -229,7 +239,7 @@ def _precompute_emit(bd: BlockData, n_out_coef, noise_run_window: str = "gap") -
     split, runq = _zone_scan(bd, kept)
     qz = _zone_quantizers(bd, kept, split, runq)
 
-    scale = jnp.exp2(qz.astype(jnp.float32))
+    scale = _exp2i(qz)
     coded = kept & (bd.absc * scale >= 2.5)
 
     cpos = jnp.where(coded, idx, _SENT)
@@ -237,7 +247,7 @@ def _precompute_emit(bd: BlockData, n_out_coef, noise_run_window: str = "gap") -
     is_tail = ncp >= bd.seg_end
     ncp_c = jnp.clip(ncp, 0, p_tot - 1)
     q_ev = qz[ncp_c]
-    ev_scale = jnp.exp2(q_ev.astype(jnp.float32))
+    ev_scale = _exp2i(q_ev)
     z_r = jnp.clip(ncp - idx, 0, _SENT)
 
     qn1 = _cq_coef(bd.coef * ev_scale, 7)
@@ -413,7 +423,7 @@ def _emit_scan(pre: EmitPre, materialize: bool):
 
         pq_valid = prev_q >= 0
         n_tail = xs.seg_end - p
-        pq_scale = jnp.exp2(jnp.clip(prev_q, 0, 31).astype(jnp.float32))
+        pq_scale = _exp2i(prev_q)
         nq_hf = jnp.minimum(_cq_unsigned(xs.amp_lin * pq_scale * 4.0), 16)
         do_hf = tail_ev & pq_valid & (n_tail > 4) & (n_tail >= 16) & xs.hf_ok & (nq_hf > 0)
         do_stop = tail_ev & (n_tail > 4) & (~do_hf)

@@ -2,11 +2,12 @@
 
 Pipeline per block (batch of streams):
   byte windows -> nybbles -> [FSM kernel] records -> gather-free record
-  expansion (scatter at record starts + associative-scan forward fill)
-  -> [RNG kernel] noise signs -> coefficients.
+  placement at record starts -> [RNG kernel] noise signs, record fill
+  and coefficients.
 
-Used by ulcx.codec.decoder.decode_stream_batched when eligible (TPU or
-forced); the scan path remains the bit-identical reference.
+Used by ulcx.codec.decoder.decode_stream_batched when
+ulcx.utils.config.kernel_mode allows; the scan path remains the
+bit-identical reference.
 """
 
 from __future__ import annotations
@@ -21,35 +22,32 @@ from ulcx.bitstream.decode import REC_COEF, REC_NOISE, REC_TAIL
 from ulcx.utils.config import CodecConfig
 
 
-def _ffill(values, flag, init):
-    """Forward fill along the last axis: value at p = last flagged value
-    at position <= p, else ``init`` (associative scan, no gathers)."""
-
-    def combine(l, r):
-        fl, vl = l
-        fr, vr = r
-        return fl | fr, jnp.where(fr, vr, vl)
-
-    f, v = lax.associative_scan(
-        combine, (flag, jnp.where(flag, values, 0)), axis=values.ndim - 1
-    )
-    return jnp.where(f, v, jnp.asarray(init, values.dtype))
+def _lanes(b: int, interpret: bool) -> int:
+    """Streams per kernel program: the tuned pd.LANES when compiled; the
+    whole padded batch as one program in interpret mode (the
+    interpreter's cost is per sequential step)."""
+    if interpret:
+        return -(-b // pd.LANES) * pd.LANES
+    return pd.LANES
 
 
-def _to_lanes(x, b):
-    """[B, T] -> [G, T, 128] (pad batch to a multiple of 128)."""
-    g = -(-b // pd.LANES)
-    pad = g * pd.LANES - b
-    xp = jnp.concatenate(
-        [x, jnp.zeros((pad,) + x.shape[1:], x.dtype)], axis=0
-    ) if pad else x
-    return xp.reshape(g, pd.LANES, -1).transpose(0, 2, 1), g, pad
+def _to_lanes(x, lanes: int, fill=0):
+    """[B, ...] -> [G, ..., lanes], the batch padded with `fill` to a
+    multiple of lanes."""
+    b = x.shape[0]
+    pad = -b % lanes
+    if pad:
+        x = jnp.concatenate(
+            [x, jnp.full((pad,) + x.shape[1:], fill, x.dtype)], axis=0
+        )
+    x = x.reshape((-1, lanes) + x.shape[1:])
+    return jnp.moveaxis(x, 1, -1)
 
 
-def _from_lanes(x, b):
-    """[G, T, 128] -> [B, T]."""
-    y = x.transpose(0, 2, 1)
-    return y.reshape(-1, x.shape[1])[:b]
+def _from_lanes(x, b: int):
+    """[G, ..., L] -> [B, ...]."""
+    x = jnp.moveaxis(x, -1, 1)
+    return x.reshape((-1,) + x.shape[2:])[:b]
 
 
 def fsm_records(windows, cfg: CodecConfig, interpret=False):
@@ -71,29 +69,25 @@ def fsm_records(windows, cfg: CodecConfig, interpret=False):
     t_len = 2 * w_bytes - 2
     tokens = jnp.where(has2[:, None], nyb[:, 2 : t_len + 2], nyb[:, 1 : t_len + 1])
 
-    tok_l, g, pad = _to_lanes(tokens, b)
-    wc_l = jnp.concatenate([wc, jnp.full((pad,), 0x10, jnp.int32)]) if pad else wc
-    wc_l = wc_l.reshape(g, pd.LANES)
-
+    lanes = _lanes(b, interpret)
     rec, code, consumed, corrupt = pd.fsm_kernel_call(
-        wc_l, tok_l, p_tot, n, interpret
+        _to_lanes(wc, lanes, 0x10), _to_lanes(tokens, lanes), p_tot, n,
+        interpret,
     )
     rec = _from_lanes(rec, b)
     code = _from_lanes(code, b)
-    consumed = consumed.reshape(-1)[:b]
-    corrupt = corrupt.reshape(-1)[:b]
+    consumed = _from_lanes(consumed, b)
+    corrupt = _from_lanes(corrupt, b)
     return rec, code, wc, hdr, consumed, corrupt
 
 
 def _mm_place(emit, start, meta, p_tot: int):
-    """Record placement as a factorized one-hot int8 matmul on the MXU.
+    """Record placement as a factorized one-hot int8 matmul.
 
     plane[b, hi*128 + lo] = sum_r onehot_hi(start) * meta * onehot_lo
     with meta split into four 7-bit parts so every operand fits int8
     and the s32 accumulation is exact integer arithmetic (each position
-    receives at most ONE record — starts are strictly increasing).
-    Probe (devtools/recscatter_probe.py, TPU): 1.7x faster than the
-    .at[].set scatter at the bs2048 shape."""
+    receives at most ONE record — starts are strictly increasing)."""
     b, r = meta.shape
     nhi = p_tot // 128
     hi = jnp.where(emit, start >> 7, nhi)  # nhi = off-grid drop bucket
@@ -117,13 +111,11 @@ def _mm_place(emit, start, meta, p_tot: int):
 
 def records_to_flags(rec, code, p_tot: int):
     """Expansion inputs: place records at their start positions — ONE
-    packed word per record (flags + level/decay/quantizer codes).
-    Round 2 used three scatters (meta + sparse f32 lvl/dcy); round 4
-    replaced the remaining scatter with the _mm_place int8 matmul (the
-    scatter was 62% of batched decode device time) and removed the
-    draw-bit forward fill that used to follow (the RNG kernel latches
-    it at record starts itself). ULCX_RECSCATTER=scatter restores the
-    .at[].set form. Returns flags [B, p_tot] i32."""
+    packed word per record (flags + level/decay/quantizer codes); the
+    RNG kernel latches the draw bit at record starts itself, so no
+    forward fill follows. Placement is the _mm_place int8 matmul;
+    ULCX_RECSCATTER=scatter selects the .at[].set form. Returns flags
+    [B, p_tot] i32."""
     import os
 
     b = rec.shape[0]
@@ -171,15 +163,13 @@ def expand_coefs(flags, rng_state, p_tot: int, interpret=False):
     once per draw position (the kernel latches the record's draw bit at
     each start), so new_rng equals the seed stepped draw_counts(flags)
     times. Returns (coefs [B, p_tot], new_rng)."""
-    flags_l, g2, pad2 = _to_lanes(flags, flags.shape[0])
-    seed_l = (
-        jnp.concatenate([rng_state, jnp.full((pad2,), 1234567, jnp.uint32)])
-        if pad2
-        else rng_state
-    ).reshape(g2, pd.LANES)
-
-    coefs, new_seed = pd.rng_expand_kernel_call(flags_l, seed_l, p_tot, interpret)
-    return _from_lanes(coefs, flags.shape[0]), new_seed.reshape(-1)[: flags.shape[0]]
+    b = flags.shape[0]
+    lanes = _lanes(b, interpret)
+    coefs, new_seed = pd.rng_expand_kernel_call(
+        _to_lanes(flags, lanes), _to_lanes(rng_state, lanes, 1234567), p_tot,
+        interpret,
+    )
+    return _from_lanes(coefs, b), _from_lanes(new_seed, b)
 
 
 def decode_block_fast(windows, rng_state, cfg: CodecConfig, interpret=False):

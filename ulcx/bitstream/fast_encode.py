@@ -6,13 +6,11 @@ kernel's planes, prices the per-segment tail tokens inside the kernel
 walks, runs the interp-seeded candidate ladder (_bracket_search), and
 assembles final byte streams.
 
-Active when the batch is a multiple of 8 streams and P <= 32768 (the
-reference's full block envelope, ulcEncoder.c:21) on a TPU backend;
-otherwise the scan path (ulcx.bitstream.encode) is used.
-Batches that are not a multiple of the kernel's 128-lane width are
-padded up (the kernel rounds are latency-bound on the serial P-walk,
-so unused lanes cost nothing). Semantics: noise_run_window="segment"
-(see CodecConfig).
+Chosen by ``ulcx.utils.config.kernel_mode`` for P <= 32768 (the
+reference's full block envelope, ulcEncoder.c:21); otherwise the scan
+path (ulcx.bitstream.encode) is used. Batches are padded up to a
+multiple of the kernel's lane width and the padding is sliced off.
+Semantics: noise_run_window="segment" (see CodecConfig).
 """
 
 from __future__ import annotations
@@ -27,6 +25,7 @@ import jax.numpy as jnp
 from jax import lax
 
 from ulcx.analysis.block import AnalyzedBlock
+from ulcx.bitstream.encode import _build_quantizer
 from ulcx.bitstream.tables import segment_tables
 from ulcx.utils.config import CodecConfig
 
@@ -47,7 +46,7 @@ class FastBlockData(NamedTuple):
     position>>1 — half the traffic and half the gather source size."""
 
     coef: jnp.ndarray        # [B, P] f32
-    aux: jnp.ndarray         # [B, P] i32: segdelta | seg_start << 16
+    aux: jnp.ndarray         # [B, P] i32: segdelta | seg_start << 16 | qi << 17
     key: jnp.ndarray         # [B, P] i32 monotone importance key
     amp_noise: jnp.ndarray   # [B, L] f32 noise amplitude (line domain)
     amp_lin: jnp.ndarray     # [B, L] f32 HF-ext amplitude (line domain)
@@ -65,7 +64,7 @@ def _prep_tables(block_size: int, n_chan: int):
     end_line [16, L] f32, sel [16*G, L] f32) where L = P/2 lines and
     G = 8*n_chan slots on the N/16-line grid. All values are small
     integers, exactly representable in f32, so per-stream selection
-    becomes a one-hot-matmul (MXU) instead of a gather (slow on TPU).
+    is an exact one-hot matmul.
     sel[k*G+g, l] = 1 iff pattern k's line l has its segment end at
     grid slot g — used to pick segment-end cumsum values.
     """
@@ -200,7 +199,10 @@ def prepare_fast(blk: AnalyzedBlock, cfg: CodecConfig) -> FastBlockData:
     is_seg_start = jnp.matmul(oh, jnp.asarray(isstart_t), precision=hi).astype(
         jnp.int32
     )
-    aux = segdelta | (is_seg_start << 16)
+    # the zone quantizer of each |coef| (BuildQuantizer) rides in aux
+    # so the kernels need no log (pallas_encode3 module docstring)
+    qa = _build_quantizer(jnp.abs(coef))
+    aux = segdelta | (is_seg_start << 16) | (qa << 17)
     # monotone importance key: the kernels test keep-membership against
     # per-candidate (t, c) thresholds fetched from ONE sorted copy of
     # this key (pallas_encode3 module docstring) — no per-position rank
@@ -218,35 +220,20 @@ def prepare_fast(blk: AnalyzedBlock, cfg: CodecConfig) -> FastBlockData:
     )
 
 
-def _pad_b(b: int) -> int:
-    """Batch padded to the kernel's 128-lane width."""
+def _lanes(b: int, interpret: bool) -> int:
+    """Streams per kernel program. Compiled: the tuned pe3.LANES. The
+    interpreter's cost is per sequential step, so interpret mode runs
+    the whole (padded) batch as one program."""
     from ulcx.bitstream import pallas_encode3 as pe3
 
-    return -(-b // pe3.LAN) * pe3.LAN
+    if interpret:
+        return -(-b // pe3.LANES) * pe3.LANES
+    return pe3.LANES
 
 
-def _pad128(fb: FastBlockData) -> FastBlockData:
-    """Zero-pad every per-stream array of fb to a 128-lane multiple.
-
-    The kernel walks are latency-bound on the serial P-length chain
-    (NOTES.md round-3 facts): vector ops over the [8, 128] lane tile
-    cost the same whether 8 or 128 lanes hold real streams, so padding
-    a small batch into the full v3 width is free — this is what
-    retired the narrow v1/v2 lane layouts. Zero planes parse as
-    rank 0 / segdelta 0 / no segment starts: the walks stay finite and
-    the outputs are sliced off."""
-    b = fb.coef.shape[0]
-    bp = _pad_b(b)
-    if bp == b:
-        return fb
-    pad = lambda x: jnp.concatenate(
-        [x, jnp.zeros((bp - b,) + x.shape[1:], x.dtype)], axis=0
-    )
-    return FastBlockData(*(pad(x) for x in fb))
-
-
-def _pad_vec(x, b: int, fill=0):
-    bp = _pad_b(b)
+def _pad_to(x, bp: int, fill=0):
+    """Pad the leading (stream) axis of x to bp with `fill`."""
+    b = x.shape[0]
     if bp == b:
         return x
     return jnp.concatenate(
@@ -254,63 +241,49 @@ def _pad_vec(x, b: int, fill=0):
     )
 
 
-def _to_lanes3(x, b):
-    """[B, P] -> [G3, P, 1, 128]: stream = g*128 + lane. NO candidate
-    replication — the kernel broadcasts over the sublane dim."""
-    from ulcx.bitstream import pallas_encode3 as pe3
-
-    g = b // pe3.N_STREAMS
-    return x.reshape(g, pe3.LAN, -1).transpose(0, 2, 1)[:, :, None, :]
+def _pad_fb(fb: FastBlockData, bp: int) -> FastBlockData:
+    """Zero-pad every per-stream array of fb to bp streams. Zero planes
+    parse as segdelta 0 / no segment starts: the walks stay finite and
+    the outputs are sliced off."""
+    return FastBlockData(*(_pad_to(x, bp) for x in fb))
 
 
-def _from_lanes3(x, b):
-    """[G3, ..., 8, 128] -> [B, 8, ...]."""
-    from ulcx.bitstream import pallas_encode3 as pe3
-
-    g = b // pe3.N_STREAMS
-    shp = x.shape[1:-2]
-    y = x.reshape((g,) + shp + (pe3.SUBC, pe3.LAN))
-    nd = len(shp)
-    perm = (0, nd + 2, nd + 1) + tuple(range(1, nd + 1))
-    y = y.transpose(perm)  # [G3, LAN, SUBC, ...]
-    return y.reshape((b, pe3.N_CAND) + shp)
+def _to_lanes3(x, lanes: int):
+    """[B, P] -> [G, P, 1, lanes]: stream = g*lanes + lane. NO candidate
+    replication — the kernel broadcasts over the candidate rows."""
+    g = x.shape[0] // lanes
+    return x.reshape(g, lanes, -1).transpose(0, 2, 1)[:, :, None, :]
 
 
-def _use_v3(b: int, p_tot: int) -> bool:
-    """v3 is the only kernel layout (batches pad to its 128-lane
-    width); P is always 128-aligned for pow2 block sizes >= 256, so
-    this only rejects exotic configs."""
-    return b % 8 == 0 and p_tot % 128 == 0
+def _cand_to_b(x):
+    """[G, N_CAND, L] -> [B, N_CAND]."""
+    return x.transpose(0, 2, 1).reshape(-1, x.shape[1])
 
 
-def cand_count(b: int, p_tot: int) -> int:
-    """Rate-search candidates per round (the 8 v3 sublanes)."""
-    from ulcx.bitstream import pallas_encode3 as pe3
-
-    return pe3.N_CAND
+def _cand_to_lanes(x, lanes: int):
+    """[B, N_CAND] -> [G, N_CAND, lanes]."""
+    return x.reshape(-1, lanes, x.shape[1]).transpose(0, 2, 1)
 
 
 class _V3Planes(NamedTuple):
-    """Lane-transposed kernel input planes ([G, P(/2), 1, LAN] etc.).
+    """Lane-transposed kernel input planes ([G, P(/2), 1, L] etc.).
 
-    Built ONCE per encode (the [B, P] -> stream-in-lane transposes cost
-    ~2 ms each on chip); every ladder round reuses them. skey/sidx are
-    the (importance-key desc, position asc) sorted copies every round's
-    per-candidate keep thresholds gather from — ONE 2-operand lane sort
-    per encode replaces the per-position rank (argsort + inverse-
-    permutation sort) of the retired rank scheme."""
+    Built ONCE per encode; every ladder round reuses them. skey/sidx
+    are the (importance-key desc, position asc) sorted copies every
+    round's per-candidate keep thresholds gather from — ONE 2-operand
+    sort per encode stands in for per-position ranks."""
 
     coef_l: jnp.ndarray
     thr_l: jnp.ndarray
     aux_l: jnp.ndarray
     key_l: jnp.ndarray
-    skey: jnp.ndarray   # [G, P, LAN] keys, stable-descending per lane
-    sidx: jnp.ndarray   # [G, P, LAN] their positions
+    skey: jnp.ndarray   # [B, P] keys, stable-descending per stream
+    sidx: jnp.ndarray   # [B, P] their positions
     ampn_l: jnp.ndarray
     hfa_l: jnp.ndarray
     hfm_l: jnp.ndarray
     hdr_l: jnp.ndarray
-    b: int
+    lanes: int
     p_tot: int
 
 
@@ -349,7 +322,7 @@ def _thr_plane_l(coef_l, ampn_l, hfa_l, hfm_l):
     lane layout from the already-transposed planes — elementwise plus a
     position shift and a pair->position repeat, so no extra
     [B, P] -> lane transpose."""
-    qm0 = _qmin_ge(jnp.abs(coef_l), "2.5")          # [G, P, 1, LAN]
+    qm0 = _qmin_ge(jnp.abs(coef_l), "2.5")          # [G, P, 1, L]
     qm1 = jnp.concatenate([qm0[:, 1:], qm0[:, -1:]], axis=1)
     qmn = jnp.repeat(_qmin_ge(ampn_l, "0.5"), 2, axis=1)
     qmh = jnp.repeat(_qmin_ge(hfa_l, "0.125"), 2, axis=1)
@@ -359,118 +332,86 @@ def _thr_plane_l(coef_l, ampn_l, hfa_l, hfm_l):
     ).astype(jnp.int32)
 
 
-def _v3_planes(fb: FastBlockData, interpret: bool = False) -> _V3Planes:
+def _v3_planes(fb: FastBlockData, lanes: int) -> _V3Planes:
     from ulcx.bitstream import pallas_encode3 as pe3
 
     b, p_tot = fb.coef.shape
     hdrw = fb.header[:, 0] | (fb.header[:, 1] << 4) | (fb.n_header << 8)
     hdr_l = jnp.broadcast_to(
-        hdrw.reshape(b // pe3.LAN, 1, pe3.LAN), (b // pe3.LAN, pe3.SUBC, pe3.LAN)
+        hdrw.reshape(b // lanes, 1, lanes), (b // lanes, pe3.N_CAND, lanes)
     )
-    coef_l = _to_lanes3(fb.coef, b)
-    ampn_l = _to_lanes3(fb.amp_noise, b)
-    hfa_l = _to_lanes3(fb.amp_lin, b)
-    hfm_l = _to_lanes3(fb.hf_meta, b)
-    key_l = _to_lanes3(fb.key, b)
-    # stable (key desc, position asc) sort, once per encode, in lane
-    # layout (a non-minor-axis sort costs the same as a last-dim sort
-    # on this backend — devtools/sort_probe.py). ~key is strictly
-    # order-reversing on i32, so an ASCENDING stable sort of ~key is
-    # exactly the descending key order with position-ascending ties.
-    kl = key_l[:, :, 0, :]
-    iota = jax.lax.broadcasted_iota(jnp.int32, kl.shape, 1)
-    skinv, sidx = jax.lax.sort((~kl, iota), dimension=1, num_keys=1)
+    coef_l = _to_lanes3(fb.coef, lanes)
+    ampn_l = _to_lanes3(fb.amp_noise, lanes)
+    hfa_l = _to_lanes3(fb.amp_lin, lanes)
+    hfm_l = _to_lanes3(fb.hf_meta, lanes)
+    # stable (key desc, position asc) sort, once per encode. ~key is
+    # strictly order-reversing on i32, so an ASCENDING stable sort of
+    # ~key is exactly the descending key order with position-ascending
+    # ties.
+    iota = jax.lax.broadcasted_iota(jnp.int32, fb.key.shape, 1)
+    skinv, sidx = jax.lax.sort((~fb.key, iota), dimension=1, num_keys=1)
     return _V3Planes(
         coef_l,
         _thr_plane_l(coef_l, ampn_l, hfa_l, hfm_l),
-        _to_lanes3(fb.aux.astype(jnp.int32), b),
-        key_l,
+        _to_lanes3(fb.aux.astype(jnp.int32), lanes),
+        _to_lanes3(fb.key, lanes),
         ~skinv,
         sidx,
         ampn_l,
         hfa_l,
         hfm_l,
         hdr_l,
-        b,
+        lanes,
         p_tot,
     )
 
 
 def _tc_of(pl3: _V3Planes, nn):
     """Per-candidate keep thresholds for candidate counts nn
-    [G, SUBC, LAN]: (t, c) = the nn-th entry of the sorted (key desc,
+    [G, N_CAND, L]: (t, c) = the nn-th entry of the sorted (key desc,
     pos asc) order, so the kernels' `key > t | (key == t & p <= c)`
     equals `stable-desc rank < nn` bit-exactly, ties included.
     nn <= 0 maps to an unreachable threshold (keep nothing)."""
-    j = jnp.clip(nn - 1, 0, pl3.p_tot - 1)
+    nb = _cand_to_b(nn)
+    j = jnp.clip(nb - 1, 0, pl3.p_tot - 1)
     t = jnp.take_along_axis(pl3.skey, j, axis=1)
     c = jnp.take_along_axis(pl3.sidx, j, axis=1)
-    none = nn <= 0
+    none = nb <= 0
     t = jnp.where(none, jnp.int32(2**31 - 1), t)
     c = jnp.where(none, jnp.int32(-1), c)
-    return t, c
+    return _cand_to_lanes(t, pl3.lanes), _cand_to_lanes(c, pl3.lanes)
 
 
 def _v3_call_l(pl3: _V3Planes, nout_l, materialize=False, interpret=False):
-    """Lane-native v3 round: nout_l [G, SUBC, LAN] i32 (candidate in
-    sublane, stream in lane); outputs stay in kernel layout — the
-    production ladder keeps ALL its state in this layout so no
-    [B, 8] <-> [G, SUBC, LAN] relayout round trips happen per round."""
+    """Lane-native round: nout_l [G, N_CAND, L] i32 (candidate in row,
+    stream in lane); outputs stay in kernel layout — the ladder keeps
+    ALL its state in this layout, so no per-round relayout happens."""
     from ulcx.bitstream import pallas_encode3 as pe3
 
-    # the group axis folds into the Pallas grid (ONE launch per phase);
-    # a vmap here would emit one launch per 128-stream group.
-    # ULCX_V3_VMAP=1 restores the vmap form (A/B harness).
-    import os as _os
-
     t, c = _tc_of(pl3, nout_l)
-    if _os.environ.get("ULCX_V3_VMAP", "0") == "1":
-        return jax.vmap(
-            lambda tt, cc, ky, cf, th, an, ax, ha, hm, hd: tuple(
-                x[0]
-                for x in pe3.encode_kernel_call3(
-                    tt[None], cc[None], ky[None], cf[None], th[None],
-                    an[None], ax[None], ha[None], hm[None], hd[None],
-                    pl3.p_tot, materialize, interpret,
-                )
-            )
-        )(t, c, pl3.key_l, pl3.coef_l, pl3.thr_l, pl3.ampn_l, pl3.aux_l,
-          pl3.hfa_l, pl3.hfm_l, pl3.hdr_l)
     return pe3.encode_kernel_call3(
         t, c, pl3.key_l, pl3.coef_l, pl3.thr_l, pl3.ampn_l, pl3.aux_l,
         pl3.hfa_l, pl3.hfm_l, pl3.hdr_l, pl3.p_tot, materialize, interpret,
     )
 
 
-def _v3_call(pl3: _V3Planes, nout, materialize=False, interpret=False):
-    """v3 size round through the [B, 8] batch interface (total_sizes /
-    the bisect replica); the production paths (materialize_fast,
-    search_materialize_fast) call _v3_call_l directly and keep
-    everything in kernel lane layout. Returns (bits [B, 8],) — tails
-    included, header excluded."""
-    from ulcx.bitstream import pallas_encode3 as pe3
-
-    assert not materialize, "materialize rides the lane-layout path"
-    b = pl3.b
-    # nout [B, 8] -> [G3, SUBC, LAN]: candidate in sublane, stream in lane
-    nout_l = nout.reshape(b // pe3.LAN, pe3.LAN, pe3.N_CAND).transpose(0, 2, 1)
-    out = _v3_call_l(pl3, nout_l, materialize, interpret)
-    bits = _from_lanes3(out[0][:, None], b)[:, :, 0]
-    return (bits,)
-
-
 def _v3_sizes(pl3: _V3Planes, n_header, nout, interpret=False):
-    (bits,) = _v3_call(pl3, nout, False, interpret)
-    total = 4 * (bits + n_header[:, None])
+    """Byte-rounded bit sizes [B, N_CAND] for candidates nout [B, N_CAND]
+    (tails included)."""
+    (bits,) = _v3_call_l(pl3, _cand_to_lanes(nout, pl3.lanes), False,
+                         interpret)
+    total = 4 * (_cand_to_b(bits) + n_header[:, None])
     return (total + 7) & ~7
 
 
 def total_sizes(fb: FastBlockData, nout, cfg: CodecConfig, interpret=False):
     """Byte-aligned block sizes in bits for candidates nout [B, K]."""
-    b, p_tot = fb.coef.shape
-    fbp = _pad128(fb)
+    b = fb.coef.shape[0]
+    lanes = _lanes(b, interpret)
+    bp = -(-b // lanes) * lanes
+    fbp = _pad_fb(fb, bp)
     return _v3_sizes(
-        _v3_planes(fbp, interpret), fbp.n_header, _pad_vec(nout, b), interpret
+        _v3_planes(fbp, lanes), fbp.n_header, _pad_to(nout, bp), interpret
     )[:b]
 
 
@@ -478,7 +419,7 @@ def total_sizes(fb: FastBlockData, nout, cfg: CodecConfig, interpret=False):
 #
 # The classic k-candidate ladder needs ceil(log_k P) size rounds to pin
 # the largest feasible n exactly; each round is a full serial kernel
-# walk (~6.4 ms at B=512/P=4096 — NOTES.md round-3 budget). Measured on
+# walk over P positions. Measured on
 # the bench corpus (devtools/search_seed_study.py, bs2048 stereo
 # CBR-128): after ONE coarse round, linearly interpolating the bracket
 # edge sizes predicts the budget crossing within |err| p50=7 p90=16
@@ -526,17 +467,15 @@ def _bracket_search(size_fn, n_nz, budget, k: int, rounds: int):
     """Classic + interp-seeded ladder rounds; returns (lo, hi) with the
     crossing bracketed and lo = best known-feasible count (or 0).
 
-    Layout-generic: n_nz/budget are [B] or [G, LAN]; candidates ride
+    Layout-generic: n_nz/budget are [B] or [G, L]; candidates ride
     axis 1 (size_fn maps candidate grids to byte-rounded bit sizes of
     the same shape). All arithmetic is int32 so the flat and
     lane-layout callers produce bit-identical brackets.
 
-    The rounds run as ONE lax.scan over a per-round is_seeded flag
-    (the seeded round already falls back to the classic grid when
-    seed_ok is false, so the bodies unify exactly): the round graph —
-    the costliest XLA-codegen unit in the whole encode compile,
-    ~38 s/instantiation (devtools/aot_bisect.py) — is compiled once
-    instead of once per round. Bit-identical brackets."""
+    The rounds are unrolled in Python; ULCX_LADDER_SCAN=1 runs them as
+    ONE lax.scan over a per-round is_seeded flag instead (the seeded
+    round falls back to the classic grid when seed_ok is false, so the
+    bodies unify exactly). Bit-identical brackets."""
     classic, seeded = _seed_plan(rounds)
     x1 = lambda a: jnp.expand_dims(a, 1)
     kshape = (1, k) + (1,) * (n_nz.ndim - 1)
@@ -596,13 +535,6 @@ def _bracket_search(size_fn, n_nz, budget, k: int, rounds: int):
     flags_py = [False] * classic + ([True] if seeded else [])
     carry = (lo, hi, s_lo, gap, den, seed_ok)
     if os.environ.get("ULCX_LADDER_SCAN", "0") == "1":
-        # Scanned A/B variant (was briefly the default): one lax.scan
-        # over a per-round is_seeded flag. Measured WORSE on both axes
-        # at r5 HEAD — end-to-end T=64 encode 2588x vs 2635x unrolled
-        # (the scan pays [G,LAN] carry-copy stalls around while.77,
-        # r5 device trace), and AOT compile 144.2 s vs 111.9 s clean
-        # (the round scan was a codegen pessimization, not a dedup
-        # win). Kept as the opt-in; brackets are bit-identical.
         carry, _ = lax.scan(round_body, carry, jnp.asarray(flags_py))
         return carry[0], carry[1]
     for f in flags_py:
@@ -630,15 +562,18 @@ def rate_search_fast(fb: FastBlockData, n_nz, budget, cfg: CodecConfig,
     fused and separate forms return the same n."""
     import math
 
-    b = fb.coef.shape[0]
-    p_tot = fb.coef.shape[1]
-    k = cand_count(b, p_tot)
-    fbp = _pad128(fb)
-    pl3 = _v3_planes(fbp, interpret)
+    from ulcx.bitstream import pallas_encode3 as pe3
+
+    b, p_tot = fb.coef.shape
+    k = pe3.N_CAND
+    lanes = _lanes(b, interpret)
+    bp = -(-b // lanes) * lanes
+    fbp = _pad_fb(fb, bp)
+    pl3 = _v3_planes(fbp, lanes)
     size_fn = lambda nn: _v3_sizes(pl3, fbp.n_header, nn, interpret)
     rounds = max(1, int(math.ceil(math.log(p_tot, k))))
-    budget = _pad_vec(budget.astype(jnp.int32), b)
-    n_nz = _pad_vec(n_nz, b)
+    budget = _pad_to(budget.astype(jnp.int32), bp)
+    n_nz = _pad_to(n_nz, bp)
     lo, hi = _bracket_search(size_fn, n_nz, budget, k, rounds)
     cands, cands_c, hi_c = _final_cands(lo, hi, k)
     sizes = size_fn(cands_c)
@@ -649,37 +584,25 @@ def rate_search_fast(fb: FastBlockData, n_nz, budget, cfg: CodecConfig,
     return jnp.max(jnp.where(feas, cands_c, lo[:, None]), axis=-1)[:b]
 
 
-def _assemble_v3_lanes(word, widx, freg, fwc, max_bytes: int,
-                       interpret=False):
-    """Compact in-kernel-packed stream words into byte streams, in
-    kernel lane layout: word/widx [G, P, LAN] (the emitted u32 word at
-    each position; index 2**30 where no word completed), freg/fwc
-    [G, LAN]; returns bytes [G*LAN, max_bytes]. Word indices of valid
-    entries are exactly 0..fwc-1 in position order, so one two-operand
-    lax.sort places every completed word; the final partial register is
-    appended at index fwc with an iota compare (no scatter).
-
-    The compaction sort runs along the POSITION axis (axis 1) with
-    streams kept in lanes: a non-minor-dim lax.sort costs the same as a
-    last-dim sort on this backend (devtools/sort_probe.py — every
-    comparator stage is an elementwise min/max over [P, LAN] tiles), so
-    the [G,P,LAN] -> [B,P] relayout copies the device trace showed
-    around the old sort (~1.5 ms each per block step at P=8192) are
-    deleted, and only the n_words = P/4 prefix is transposed after."""
-    g, p_tot, lan = word.shape
+def _assemble_words(word, widx, freg, fwc, max_bytes: int):
+    """Place in-kernel-packed stream words into byte streams: word/widx
+    [G, P, L] (the emitted u32 word at each position; index 2**30 where
+    no word completed), freg/fwc [G, L]; returns bytes
+    [G*L, max_bytes]. Word indices of valid entries are exactly
+    0..fwc-1, so one scatter places every completed word; the final
+    partial register is appended at index fwc."""
+    g, p_tot, lanes = word.shape
+    b = g * lanes
     n_words = (2 * max_bytes) // 8
-    _, sval = lax.sort((widx, word), dimension=1, num_keys=1)
-    iota = jnp.arange(n_words, dtype=jnp.int32)[None, :, None]
-    wc = fwc[:, None, :]
-    words = jnp.where(
-        iota < wc,
-        sval[:, :n_words],
-        jnp.where(iota == wc, freg[:, None, :], 0),
-    )
-    words_b = words.transpose(0, 2, 1).reshape(g * lan, n_words)
+    to_b = lambda x: x.transpose(0, 2, 1).reshape(b, -1)
+    rows = jnp.arange(b)[:, None]
+    words = jnp.zeros((b, n_words), jnp.int32)
+    words = words.at[rows, to_b(widx)].set(to_b(word), mode="drop")
+    fwc_b, freg_b = fwc.reshape(b), freg.reshape(b)
+    words = words.at[jnp.arange(b), fwc_b].set(freg_b, mode="drop")
     sh = jnp.arange(4) * 8
-    by = ((words_b[:, :, None] >> sh[None, None, :]) & 0xFF).astype(jnp.uint8)
-    return by.reshape(g * lan, 4 * n_words)
+    by = ((words[:, :, None] >> sh[None, None, :]) & 0xFF).astype(jnp.uint8)
+    return by.reshape(b, 4 * n_words)
 
 
 def materialize_fast(fb: FastBlockData, n_out, cfg: CodecConfig, max_bytes: int,
@@ -689,21 +612,21 @@ def materialize_fast(fb: FastBlockData, n_out, cfg: CodecConfig, max_bytes: int,
     from ulcx.bitstream import pallas_encode3 as pe3
 
     b_in = fb.coef.shape[0]
-    fb = _pad128(fb)
-    n_out = _pad_vec(n_out, b_in)
-    b, p_tot = fb.coef.shape
-    g = b // pe3.LAN
+    lanes = _lanes(b_in, interpret)
+    bp = -(-b_in // lanes) * lanes
+    fb = _pad_fb(fb, bp)
+    g = bp // lanes
     nout_l = jnp.broadcast_to(
-        n_out.astype(jnp.int32).reshape(g, 1, pe3.LAN),
-        (g, pe3.SUBC, pe3.LAN),
+        _pad_to(n_out, bp).astype(jnp.int32).reshape(g, 1, lanes),
+        (g, pe3.N_CAND, lanes),
     )
     bits_l, word_l, widx_l, freg_l, fwc_l = _v3_call_l(
-        _v3_planes(fb, interpret), nout_l, True, interpret
+        _v3_planes(fb, lanes), nout_l, True, interpret
     )
-    size_bits = (4 * (bits_l[:, 0, :].reshape(b) + fb.n_header) + 7) & ~7
-    by = _assemble_v3_lanes(
+    size_bits = (4 * (bits_l[:, 0, :].reshape(bp) + fb.n_header) + 7) & ~7
+    by = _assemble_words(
         word_l[:, :, 0, :], widx_l[:, :, 0, :], freg_l[:, 0, :],
-        fwc_l[:, 0, :], max_bytes, interpret,
+        fwc_l[:, 0, :], max_bytes,
     )
     return size_bits[:b_in], by[:b_in]
 
@@ -712,39 +635,31 @@ def search_materialize_fast(fb: FastBlockData, n_nz, budget, cfg: CodecConfig,
                             max_bytes: int, interpret=False):
     """CBR/ABR: interp-seeded ladder rate search with the final round
     fused into materialization (the kernel prices and packs every
-    candidate lane; the best feasible lane's stream is selected).
+    candidate row; the best feasible row's stream is selected).
     Returns (n_out [B], size_bits [B], bytes [B, max_bytes])."""
     import math
 
     from ulcx.bitstream import pallas_encode3 as pe3
 
-    b_in = fb.coef.shape[0]
-    fb = _pad128(fb)
-    n_nz = _pad_vec(n_nz, b_in)
-    budget = _pad_vec(budget, b_in)
-    b, p_tot = fb.coef.shape
-    k = cand_count(b, p_tot)
+    b_in, p_tot = fb.coef.shape
+    lanes = _lanes(b_in, interpret)
+    bp = -(-b_in // lanes) * lanes
+    fb = _pad_fb(fb, bp)
+    g = bp // lanes
+    k = pe3.N_CAND
     rounds = max(1, int(math.ceil(math.log(p_tot, k))))
 
-    # the whole ladder runs in KERNEL LAYOUT ([G, cand-sublane,
+    # the whole ladder runs in KERNEL LAYOUT ([G, cand-row,
     # stream-lane]): bracket state, candidate grids, feasibility and
-    # the final select never round-trip through [B, k] — the device
-    # trace showed the per-round [G,8,128]<->[B,8] relayout copies
-    # costing more than the feasibility math itself
-    pl3 = _v3_planes(fb, interpret)
-    g = b // 128
-    bud = budget.astype(jnp.int32).reshape(g, 128)[:, None, :]
-    nh_l = fb.n_header.reshape(g, 128)[:, None, :]
+    # the final select never round-trip through [B, k]
+    pl3 = _v3_planes(fb, lanes)
+    as_l = lambda x: _pad_to(x, bp).astype(jnp.int32).reshape(g, lanes)
+    bud = as_l(budget)[:, None, :]
+    nh_l = fb.n_header.reshape(g, lanes)[:, None, :]
     size_fn_l = lambda nn: (
         4 * (_v3_call_l(pl3, nn, False, interpret)[0] + nh_l) + 7
     ) & ~7
-    lo, hi = _bracket_search(
-        size_fn_l,
-        n_nz.astype(jnp.int32).reshape(g, 128),
-        budget.astype(jnp.int32).reshape(g, 128),
-        k,
-        rounds,
-    )
+    lo, hi = _bracket_search(size_fn_l, as_l(n_nz), as_l(budget), k, rounds)
 
     # final round: adaptive-spacing candidates, fused with
     # materialization
@@ -755,27 +670,25 @@ def search_materialize_fast(fb: FastBlockData, n_nz, budget, cfg: CodecConfig,
     sizes = (4 * (bits_l + nh_l) + 7) & ~7
     # clipped candidates equal hi_c (in-bracket): selectable
     feas = sizes <= bud
-    feas = feas.at[:, 0, :].set(True)  # lane 0 = lo, always a fallback
+    feas = feas.at[:, 0, :].set(True)  # row 0 = lo, always a fallback
     jidx = jnp.arange(k)[None, :, None]
-    best_j = jnp.max(jnp.where(feas, jidx, 0), axis=1)  # [G, LAN]
+    best_j = jnp.max(jnp.where(feas, jidx, 0), axis=1)  # [G, L]
 
     def sel_l(x):
-        # k-way sublane select by best_j (where-chain; gathers and
-        # one-hot einsum selects both measured slower)
-        if x.ndim == 3:  # [G, k, LAN]
+        # k-way row select by best_j
+        if x.ndim == 3:  # [G, k, L]
             out = x[:, 0]
             for j in range(1, k):
                 out = jnp.where(best_j == j, x[:, j], out)
             return out
-        out = x[:, :, 0]  # [G, P, k, LAN]
+        out = x[:, :, 0]  # [G, P, k, L]
         for j in range(1, k):
             out = jnp.where((best_j == j)[:, None, :], x[:, :, j], out)
         return out
 
-    n_out = sel_l(cands_c).reshape(b)
-    size_bits = sel_l(sizes).reshape(b)
-    by = _assemble_v3_lanes(
-        sel_l(word_l), sel_l(widx_l), sel_l(freg_l), sel_l(fwc_l),
-        max_bytes, interpret,
+    n_out = sel_l(cands_c).reshape(bp)
+    size_bits = sel_l(sizes).reshape(bp)
+    by = _assemble_words(
+        sel_l(word_l), sel_l(widx_l), sel_l(freg_l), sel_l(fwc_l), max_bytes,
     )
     return n_out[:b_in], size_bits[:b_in], by[:b_in]

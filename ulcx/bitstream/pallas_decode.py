@@ -1,26 +1,26 @@
-"""Pallas TPU kernels for the bitstream decoder.
+"""Pallas kernels (Triton route) for the bitstream decoder.
 
 Two kernels mirror the encoder kernels' design (pallas_encode3.py):
 
 - **FSM kernel**: the nybble syntax state machine
-  (ulcx.bitstream.decode.decode_block_tokens) as a hardware loop over
-  VMEM — one nybble per step, 128 streams in lanes. Segment ends are
-  computed *arithmetically* from the window-control word (an 8-slot
-  per-pattern next-end register file built once at kernel start), so
-  there are no per-lane table gathers.
+  (ulcx.bitstream.decode.decode_block_tokens) as one in-kernel loop
+  over the tokens, one nybble per step, LANES streams per program.
+  Segment ends are computed *arithmetically* from the window-control
+  word (an 8-slot per-pattern next-end register file built once at
+  kernel start), so there are no per-lane table gathers.
 - **RNG kernel**: the xorshift32 cumulative-sign replay over coefficient
   positions (the reference's process-global noise RNG,
   ulcDecoder.c:75-81), one position per step, fused with record fill
   and coefficient assembly.
 
-Record placement between them is gather-free vectorized JAX (the
-one-hot int8 matmul in fast_decode.records_to_flags).
+Record placement between them is gather-free vectorized JAX
+(fast_decode.records_to_flags).
 
-Both serial loops ride the same chunked grid as the encoder kernels
-(grid = (G, n_chunks), carry persisted in VMEM scratch across grid
-steps): VMEM holds only a chunk of the token/position planes at a
-time, so the envelope is the encoder's full P <= 32768 (the complete
-reference block-size range, ulcEncoder.c:21) with bounded VMEM.
+Each program walks the whole token (or position) axis of its streams,
+the carry in registers: programs run in parallel and in no order, so
+no carry crosses a program boundary. The envelope is the encoder's
+full P <= 32768 (the complete reference block-size range,
+ulcEncoder.c:21).
 """
 
 from __future__ import annotations
@@ -32,14 +32,11 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 from ulcx.ops.patterns import pattern_subblock_offsets, pattern_subblock_sizes
 
-LANES = 128
-UNROLL = 1  # Mosaic supports only unroll=1 or full; these loops are too long to unroll fully
-T_CHUNK = 1024  # token-axis grid chunk (FSM kernel)
-P_CHUNK = 1024  # position-axis grid chunk (RNG kernel)
+LANES = 2  # streams per program (power of two; fastest of 2-16 on an H100)
 
 # FSM modes (shared vocabulary with ulcx.bitstream.decode)
 M_QUANT_START = 0
@@ -66,15 +63,6 @@ REC_NOISE = 3
 REC_TAIL = 4
 
 
-def _chunk_of(total: int, want: int) -> int:
-    """Largest chunk <= want that divides total (block_size >= 256 and
-    power-of-two guarantees a >= 256 divisor for the position axis)."""
-    c = min(want, total)
-    while total % c:
-        c //= 2
-    return c
-
-
 def _next_end_table(block_size: int):
     """[16][8]: for each pattern and N/8 slot, the in-channel coefficient
     index where the segment containing that slot ends."""
@@ -96,38 +84,24 @@ def _expand_quant(qi):
     return m.astype(jnp.float32) * jnp.float32(2.0**-31)
 
 
-def _fsm_kernel(wc_ref, nyb_ref, rec_ref, code_ref, meta_ref, st_sc,
-                *, p_tot: int, n: int, t_len: int, t_chunk: int):
+def _fsm_kernel(wc_ref, nyb_ref, rec_ref, code_ref, meta_ref,
+                *, p_tot: int, n: int, t_len: int):
     """Single packed loop carry: pos(15) | mode(4)<<15 | qi(5)<<19 |
     r0(8)<<24 — exactly 32 bits. pos only matters while the FSM is
     active (mode < M_DONE), where pos < p_tot <= 32768, so 15 bits
     cover the encoder kernels' full P=32768 envelope; corrupt is the
-    mode sentinel M_CORRUPT (15).
-
-    The Mosaic TPU compiler (as shipped here) fails on loops where a
-    second carry is updated under a predicate derived from another,
-    cyclically-updated carry — so the whole FSM state lives in ONE
-    word, and per-step 'consumed' is recovered outside the kernel by
-    summing the active bit emitted with each record word.
-
-    The token axis rides the grid (carry in VMEM scratch, initialized
-    at j == 0): VMEM holds one [t_chunk, LANES] block of the
-    nybble/rec/code planes at a time. Steps past the true window
-    length t_len (chunk padding) freeze the carry and emit inactive.
+    mode sentinel M_CORRUPT (15). Per-step 'consumed' is recovered
+    outside the kernel by summing the active bit emitted with each
+    record word.
     """
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _():
-        st_sc[0] = jnp.full((LANES,), M_QUANT_START << 15, jnp.int32)
-
-    wc = wc_ref[0, :]
+    wc = wc_ref[...]
+    lanes = wc.shape[0]
     pat = wc >> 4
     slot_shift = int(np.log2(n // 8))
     net = _next_end_table(n)
     nse = []
     for s in range(8):
-        v = jnp.full((LANES,), int(net[1, s]), jnp.int32)
+        v = jnp.full((lanes,), int(net[1, s]), jnp.int32)
         for p in range(16):
             v = jnp.where(pat == p, jnp.int32(int(net[p, s])), v)
         nse.append(v)
@@ -140,15 +114,13 @@ def _fsm_kernel(wc_ref, nyb_ref, rec_ref, code_ref, meta_ref, st_sc,
             se = jnp.where(slot == s, nse[s], se)
         return cb + se
 
-    base = j * t_chunk
-
     def body(t, st):
         pos = st & 0x7FFF
         mode = (st >> 15) & 0xF
         qi = (st >> 19) & 0x1F
         r0 = (st >> 24) & 0xFF
-        x = nyb_ref[t, :]
-        active = (mode != M_DONE) & (mode != M_CORRUPT) & (base + t < t_len)
+        x = nyb_ref[t]
+        active = (mode != M_DONE) & (mode != M_CORRUPT)
         se = seg_end_of(pos)
         remaining = se - pos
 
@@ -156,16 +128,16 @@ def _fsm_kernel(wc_ref, nyb_ref, rec_ref, code_ref, meta_ref, st_sc,
         new_pos = pos
         new_qi = qi
         new_r0 = r0
-        bad = jnp.zeros((LANES,), jnp.bool_)
-        emit = jnp.zeros((LANES,), jnp.bool_)
-        rtype = jnp.full((LANES,), REC_NONE, jnp.int32)
+        bad = jnp.zeros((lanes,), jnp.bool_)
+        emit = jnp.zeros((lanes,), jnp.bool_)
+        rtype = jnp.full((lanes,), REC_NONE, jnp.int32)
         # level/decay leave the kernel as small integer CODES
         # (a | dn << 5 | qi << 13); the RNG kernel reconstructs the f32
         # values with the identical expressions. One i32 plane instead
         # of two f32 planes, and the record placement outside collapses
         # from three to one.
-        r_a = jnp.zeros((LANES,), jnp.int32)
-        r_dn = jnp.zeros((LANES,), jnp.int32)
+        r_a = jnp.zeros((lanes,), jnp.int32)
+        r_dn = jnp.zeros((lanes,), jnp.int32)
 
         def seg_adv(p):
             return jnp.where(p >= p_tot, M_DONE, jnp.where(p == se, M_QUANT_START, M_NORMAL))
@@ -276,8 +248,8 @@ def _fsm_kernel(wc_ref, nyb_ref, rec_ref, code_ref, meta_ref, st_sc,
             jnp.clip(pos, 0, 0x7FFF) | (rtype << 15),
             0,
         ) | (active.astype(jnp.int32) << 29)
-        rec_ref[t, :] = rec
-        code_ref[t, :] = jnp.where(emit, r_a | (r_dn << 5) | (qi << 13), 0)
+        rec_ref[t] = rec
+        code_ref[t] = jnp.where(emit, r_a | (r_dn << 5) | (qi << 13), 0)
 
         packed = (
             jnp.clip(jnp.where(active, new_pos, pos), 0, 0x7FFF)
@@ -287,111 +259,53 @@ def _fsm_kernel(wc_ref, nyb_ref, rec_ref, code_ref, meta_ref, st_sc,
         )
         return packed
 
-    final = lax.fori_loop(0, t_chunk, body, st_sc[0], unroll=UNROLL)
-    st_sc[0] = final
-    meta_ref[0, :] = final
+    init = jnp.full((lanes,), M_QUANT_START << 15, jnp.int32)
+    meta_ref[...] = lax.fori_loop(0, t_len, body, init)
+
+
+def _call(kernel, g: int, lanes: int, in_shapes, out_shapes, interpret: bool):
+    """One program per stream group; every block spans the whole token
+    or position axis of its group's `lanes` streams (shapes given
+    without the G axis)."""
+
+    def spec(shape):
+        zeros = (0,) * len(shape)
+        return pl.BlockSpec((None,) + shape, lambda i: (i,) + zeros)
+
+    return pl.pallas_call(
+        kernel,
+        grid=(g,),
+        in_specs=[spec(s) for s in in_shapes],
+        out_specs=tuple(spec(s.shape[1:]) for s in out_shapes),
+        out_shape=tuple(out_shapes),
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=1, num_stages=1),
+        interpret=interpret,
+    )
 
 
 def fsm_kernel_call(wc, nybbles, p_tot: int, n: int, interpret: bool = False):
-    """wc [G, LANES] i32; nybbles [G, T, LANES] i32 (header stripped).
+    """wc [G, L] i32; nybbles [G, T, L] i32 (header stripped).
 
-    Returns (rec [G, T, LANES] i32 packed start|type<<15,
-    code [G, T, LANES] i32 packed a|dn<<5|qi<<13,
-    consumed [G, LANES] i32, corrupt [G, LANES] i32)."""
-    g, t_len = nybbles.shape[0], nybbles.shape[1]
-    # the token axis is padded up to the chunk, so any chunk size is
-    # legal: one chunk for short windows, T_CHUNK-blocks beyond
-    t_chunk = t_len if t_len <= T_CHUNK else T_CHUNK
-    t_pad = (-t_len) % t_chunk
-    if t_pad:
-        nybbles = jnp.concatenate(
-            [nybbles, jnp.zeros((g, t_pad, LANES), nybbles.dtype)], axis=1
-        )
-    n_chunks = (t_len + t_pad) // t_chunk
-    kern = functools.partial(
-        _fsm_kernel, p_tot=p_tot, n=n, t_len=t_len, t_chunk=t_chunk
-    )
-    whole = pl.BlockSpec(
-        (None, 8, LANES), lambda gg, j: (gg, 0, 0), memory_space=pltpu.VMEM
-    )
-    chunk = pl.BlockSpec(
-        (None, t_chunk, LANES), lambda gg, j: (gg, j, 0),
-        memory_space=pltpu.VMEM,
-    )
-    rec, code, meta = pl.pallas_call(
-        kern,
-        grid=(g, n_chunks),
-        out_shape=(
-            jax.ShapeDtypeStruct((g, t_len + t_pad, LANES), jnp.int32),
-            jax.ShapeDtypeStruct((g, t_len + t_pad, LANES), jnp.int32),
-            jax.ShapeDtypeStruct((g, 8, LANES), jnp.int32),
-        ),
-        in_specs=[whole, chunk],
-        out_specs=(chunk, chunk, whole),
-        scratch_shapes=[pltpu.VMEM((8, LANES), jnp.int32)],
-        interpret=interpret,
-    )(
-        jnp.broadcast_to(wc[:, None, :], (g, 8, LANES)).astype(jnp.int32),
-        nybbles,
-    )
-    if t_pad:
-        rec, code = rec[:, :t_len], code[:, :t_len]
-    final = meta[:, 0]
+    Returns (rec [G, T, L] i32 packed start|type<<15,
+    code [G, T, L] i32 packed a|dn<<5|qi<<13,
+    consumed [G, L] i32, corrupt [G, L] i32)."""
+    g, t_len, lanes = nybbles.shape
+    kern = functools.partial(_fsm_kernel, p_tot=p_tot, n=n, t_len=t_len)
+    plane = jax.ShapeDtypeStruct((g, t_len, lanes), jnp.int32)
+    rec, code, final = _call(
+        kern, g, lanes, [(lanes,), (t_len, lanes)],
+        [plane, plane, jax.ShapeDtypeStruct((g, lanes), jnp.int32)],
+        interpret,
+    )(wc.astype(jnp.int32), nybbles)
     consumed = jnp.sum((rec >> 29) & 1, axis=1).astype(jnp.int32)
     mode_f = (final >> 15) & 0xF
     corrupt = (mode_f != M_DONE).astype(jnp.int32)
     return rec & ((1 << 29) - 1), code, consumed, corrupt
 
 
-def _rng_kernel(flags_ref, seed_ref, sign_ref, seed_out_ref, *, p_tot: int):
-    """Replay the xorshift32 cumulative-sign sequence (A/B stage bench
-    harness — production uses the fused _rng_expand_kernel).
-
-    flags[p]: bit0 = draw (noise/tail coefficient), bit1 = record start.
-    """
-
-    def body(p, carry):
-        state, parity = carry
-        f = flags_ref[p, :]
-        draw = (f & 1) == 1
-        st = (f & 2) == 2
-        s2 = state ^ (state << 13)
-        s2 = s2 ^ (s2 >> 17)
-        s2 = s2 ^ (s2 << 5)
-        state = jnp.where(draw, s2, state)
-        bit = (state >> 31) & jnp.uint32(1)
-        parity = jnp.where(st, jnp.uint32(0), parity)
-        parity = jnp.where(draw, parity ^ bit, parity)
-        sign_ref[p, :] = jnp.where(parity == 1, -1.0, 1.0).astype(jnp.float32)
-        return state, parity
-
-    state, _ = lax.fori_loop(
-        0, p_tot, body, (seed_ref[0, :], jnp.zeros((LANES,), jnp.uint32)),
-        unroll=UNROLL,
-    )
-    seed_out_ref[0, :] = state
-
-
-def rng_kernel_call(flags, seed, p_tot: int, interpret: bool = False):
-    """flags [P, LANES] i32; seed [LANES] u32.
-    Returns (sign [P, LANES] f32, new_seed [LANES] u32)."""
-    kern = functools.partial(_rng_kernel, p_tot=p_tot)
-    vspec = pl.BlockSpec(memory_space=pltpu.VMEM)
-    sign, seed_out = pl.pallas_call(
-        kern,
-        out_shape=(
-            jax.ShapeDtypeStruct((p_tot, LANES), jnp.float32),
-            jax.ShapeDtypeStruct((8, LANES), jnp.uint32),
-        ),
-        in_specs=[vspec, vspec],
-        out_specs=(vspec, vspec),
-        interpret=interpret,
-    )(flags, jnp.broadcast_to(seed[None, :], (8, LANES)).astype(jnp.uint32))
-    return sign, seed_out[0]
-
-
 def _rng_expand_kernel(flags_ref, seed_ref, coef_ref, seed_out_ref,
-                       ui_sc, uf_sc, *, p_chunk: int):
+                       *, p_tot: int):
     """Fused RNG replay + record fill + coefficient assembly.
 
     flags[p] is ONE packed word per position (sparse fields live at
@@ -399,36 +313,14 @@ def _rng_expand_kernel(flags_ref, seed_ref, coef_ref, seed_out_ref,
     bit2 = coded-coefficient record, bit3 = tail record,
     a<<4 | dn<<9 | qi<<17 level/decay codes. The draw bit is LATCHED
     in-kernel at record starts (records tile the positions, so the
-    latch IS the forward fill) — round 4 removed the outside [B, P]
-    associative scan that used to fill it, the decode scan body's
-    second-costliest stage after the record scatter. Level/decay floats
-    are reconstructed here with the exact expressions the FSM used to
-    emit (bit-identical; see _fsm_kernel) — one input plane instead of
-    flags+lvl+dcy. Tail decay runs as the reference's sequential
+    latch IS the forward fill). Level/decay floats are reconstructed
+    here with the exact expressions the scan decoder uses
+    (bit-identical). Tail decay runs as the reference's sequential
     ``mag *= r`` (ulcDecoder.c:186).
-
-    Carry-dependence shape: every carry that GATES another carry's
-    update (the draw latch gating state/parity, dcy gating mag) is
-    itself updated only under input-derived predicates (the start bit)
-    — the acyclic shape the Mosaic backend compiles (NOTES.md Mosaic
-    bug). The position axis rides the grid (carry in scratch), so VMEM
-    holds one [p_chunk, LANES] block of flags/coefs at a time — the
-    envelope is P <= 32768 without the whole plane resident.
     """
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _():
-        ui_sc[0] = seed_ref[0, :]
-        ui_sc[1] = jnp.zeros((LANES,), jnp.uint32)  # parity
-        ui_sc[2] = jnp.zeros((LANES,), jnp.uint32)  # drw latch
-        uf_sc[0] = jnp.zeros((LANES,), jnp.float32)  # lvl
-        uf_sc[1] = jnp.zeros((LANES,), jnp.float32)  # mag
-        uf_sc[2] = jnp.zeros((LANES,), jnp.float32)  # dcy
-
     def body(p, carry):
         state, parity, drw, lvl, mag, dcy = carry
-        f = flags_ref[p, :]
+        f = flags_ref[p]
         st = (f & 1) == 1
         drw = jnp.where(st, ((f >> 1) & 1).astype(jnp.uint32), drw)
         draw = drw == jnp.uint32(1)
@@ -464,52 +356,30 @@ def _rng_expand_kernel(flags_ref, seed_ref, coef_ref, seed_out_ref,
         parity = jnp.where(st, jnp.uint32(0), parity)
         parity = jnp.where(draw, parity ^ bit, parity)
         sign = jnp.where(parity == 1, -1.0, 1.0).astype(jnp.float32)
-        coef_ref[p, :] = jnp.where(
+        coef_ref[p] = jnp.where(
             is_coef, lvl, jnp.where(draw, mag * sign, 0.0)
         )
         # decay only inside tail runs (noise records carry dcy == 0)
         mag = jnp.where(draw & (dcy != 0.0), mag * dcy, mag)
         return state, parity, drw, lvl, mag, dcy
 
-    out = lax.fori_loop(
-        0, p_chunk, body,
-        (ui_sc[0], ui_sc[1], ui_sc[2], uf_sc[0], uf_sc[1], uf_sc[2]),
-        unroll=UNROLL,
-    )
-    ui_sc[0], ui_sc[1], ui_sc[2] = out[0], out[1], out[2]
-    uf_sc[0], uf_sc[1], uf_sc[2] = out[3], out[4], out[5]
-    seed_out_ref[0, :] = out[0]
+    seed = seed_ref[...]
+    zu = jnp.zeros(seed.shape, jnp.uint32)
+    zf = jnp.zeros(seed.shape, jnp.float32)
+    out = lax.fori_loop(0, p_tot, body, (seed, zu, zu, zf, zf, zf))
+    seed_out_ref[...] = out[0]
 
 
 def rng_expand_kernel_call(flags, seed, p_tot: int, interpret: bool = False):
-    """flags [G, P, LANES] i32 (packed per-position word); seed [G, LANES]
-    u32. Returns (coef [G, P, LANES] f32, new_seed [G, LANES] u32)."""
-    g = flags.shape[0]
-    p_chunk = _chunk_of(p_tot, P_CHUNK)
-    kern = functools.partial(_rng_expand_kernel, p_chunk=p_chunk)
-    whole_u = pl.BlockSpec(
-        (None, 8, LANES), lambda gg, j: (gg, 0, 0), memory_space=pltpu.VMEM
-    )
-    chunk_i = pl.BlockSpec(
-        (None, p_chunk, LANES), lambda gg, j: (gg, j, 0),
-        memory_space=pltpu.VMEM,
-    )
-    coef, seed_out = pl.pallas_call(
-        kern,
-        grid=(g, p_tot // p_chunk),
-        out_shape=(
-            jax.ShapeDtypeStruct((g, p_tot, LANES), jnp.float32),
-            jax.ShapeDtypeStruct((g, 8, LANES), jnp.uint32),
-        ),
-        in_specs=[chunk_i, whole_u],
-        out_specs=(chunk_i, whole_u),
-        scratch_shapes=[
-            pltpu.VMEM((3, LANES), jnp.uint32),
-            pltpu.VMEM((3, LANES), jnp.float32),
+    """flags [G, P, L] i32 (packed per-position word); seed [G, L]
+    u32. Returns (coef [G, P, L] f32, new_seed [G, L] u32)."""
+    g, _, lanes = flags.shape
+    kern = functools.partial(_rng_expand_kernel, p_tot=p_tot)
+    return _call(
+        kern, g, lanes, [(p_tot, lanes), (lanes,)],
+        [
+            jax.ShapeDtypeStruct((g, p_tot, lanes), jnp.float32),
+            jax.ShapeDtypeStruct((g, lanes), jnp.uint32),
         ],
-        interpret=interpret,
-    )(
-        flags,
-        jnp.broadcast_to(seed[:, None, :], (g, 8, LANES)).astype(jnp.uint32),
-    )
-    return coef, seed_out[:, 0]
+        interpret,
+    )(flags, seed.astype(jnp.uint32))

@@ -201,8 +201,7 @@ def decode_stream_pipelined(
     """Single-stream decode with the serial work cut to the FSM alone.
 
     decode_stream runs the FULL per-block pipeline inside the block
-    scan; at batch 1 the backend's per-step fixed costs made the CLI
-    decode tool ~0.7x realtime (NOTES.md round-4 log). The block chain
+    scan, paying every stage's per-step fixed cost at batch 1. The block chain
     has exactly three cross-block dependencies, and each one unlocks:
 
       offsets  — bits consumed come out of the FSM, so a lean FSM-only
@@ -221,7 +220,7 @@ def decode_stream_pipelined(
     Everything after the FSM scan (expansion, RNG replay, double IMDCT,
     M/S) then runs ONCE over all n_blocks as a batch. The second IMDCT
     pass (laps, then pcm with shifted laps) costs 2x transform FLOPs —
-    MXU-cheap against the per-block fixed costs it removes.
+    cheap against the per-block fixed costs it removes.
 
     Same interface/results as decode_stream: (pcm [T, C, N], bits [T],
     corrupt [T], (offset, carry)); bits and RNG integer state are

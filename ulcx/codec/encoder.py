@@ -25,7 +25,7 @@ from ulcx.bitstream.encode import (
     encode_pass_size,
     prepare_block,
 )
-from ulcx.utils.config import CodecConfig
+from ulcx.utils.config import CodecConfig, kernel_mode
 
 _E_TO_E = np.float32(float.fromhex("0x1.E4EFB7p3"))  # e^e
 
@@ -51,7 +51,7 @@ def cbr_bit_budget(cfg: CodecConfig, rate_kbps) -> jnp.ndarray:
 
 
 def _cbr_search_ladder(bd, n_nz, budget, cfg: CodecConfig, k: int = 16):
-    """Parallel on-device rate search (TPU-native form of the bisection).
+    """Parallel on-device rate search (vectorized form of the bisection).
 
     Each round evaluates k candidate coefficient counts *in one scan
     pair* (the candidate axis folds into the vector lanes), narrowing
@@ -184,42 +184,11 @@ def init_carry_batched(cfg: CodecConfig, batch: int):
     )
 
 
-def _use_kernel(cfg: CodecConfig, batch: int) -> bool:
-    if cfg.use_pallas == "off":
-        return False
-    p_tot = cfg.n_chan * cfg.block_size
-    # One kernel family (the 128-lane v3 layout; smaller batches pad up
-    # for free — fast_encode._pad128). Envelope P <= 32768 — the full
-    # reference BLOCK envelope incl. mono bs32768 (ulcEncoder.c:21):
-    # aux packs segdelta in 16 bits (a full bs32768 segment) and the
-    # state plane ncp in 16 bits (sentinel 65535 > P-1); the keep test
-    # is threshold-based (pallas_encode3 docstring), so no rank field
-    # bounds P. VMEM use is CHUNK-blocked. Many-channel shapes past
-    # P=32768 (the reference allows up to 255ch, ulcEncoder.c:18-22)
-    # take the scan path.
-    shape_ok = (
-        p_tot <= 32768
-        and p_tot % 128 == 0
-        and cfg.block_size <= 32768
-        and batch % 8 == 0
-        and cfg.noise_run_window == "segment"
-    )
-    if not shape_ok:
-        if cfg.use_pallas == "on":
-            # "on" FORCES the kernels; an ineligible shape is a loud
-            # error (mirrors the noise_run_window='gap' ValueError in
-            # utils/config.py) rather than a silent scan fallback.
-            raise ValueError(
-                "use_pallas='on' but the shape is outside the kernel "
-                f"envelope: need n_chan*block_size <= 32768 and a "
-                f"multiple of 128 (got {p_tot}) and batch % 8 == 0 "
-                f"(got {batch}); use use_pallas='auto' to fall back to "
-                "the scan path on ineligible shapes"
-            )
-        return False
-    if cfg.use_pallas == "on":
-        return True
-    return jax.default_backend() not in ("cpu",)
+def _use_kernel(cfg: CodecConfig) -> bool:
+    """Encode through the Pallas kernels (kernel_mode decides the
+    backend and P <= 32768 envelope; any batch pads to the kernel's
+    lane width). noise_run_window='gap' is scan-only."""
+    return cfg.noise_run_window == "segment" and kernel_mode(cfg) != "off"
 
 
 def _encode_analyzed_fast(blk: AnalyzedBlock, cfg: CodecConfig, mode: str, **kw):
@@ -230,9 +199,7 @@ def _encode_analyzed_fast(blk: AnalyzedBlock, cfg: CodecConfig, mode: str, **kw)
         search_materialize_fast,
     )
 
-    from ulcx.utils.config import mosaic_interpret
-
-    interpret = mosaic_interpret()
+    interpret = kernel_mode(cfg) == "interpret"
     fb = prepare_fast(blk, cfg)
     p_tot = cfg.n_chan * cfg.block_size
     if mode == "vbr":
@@ -270,7 +237,7 @@ def encode_block_batched(carry, new_blocks, cfg: CodecConfig, mode: str, **kw):
     from ulcx.analysis.batched import analyze_block_batched
 
     carry, blk = analyze_block_batched(carry, new_blocks, cfg)
-    if _use_kernel(cfg, new_blocks.shape[0]):
+    if _use_kernel(cfg):
         enc = _encode_analyzed_fast(blk, cfg, mode, **kw)
     else:
         enc = jax.vmap(lambda ab: _encode_analyzed(ab, cfg, mode, **kw))(blk)
@@ -282,16 +249,14 @@ def encode_stream_batched(blocks, cfg: CodecConfig, mode: str, carry=None,
     """Encode [B, T, C, N] batched streams. Returns (EncodedBlock with
     leading [B, T], carry) — or leading [T, B] with scan_major=True:
     the block axis is scanned, so [T, B] is the layout the outputs are
-    produced in, and the [T,B]->[B,T] relayout of the stacked byte
-    planes costs ~25% of the whole graph's XLA compile time
-    (devtools/aot_out_probe.py: 136 s vs 179 s) for pure output sugar.
-    Throughput/bench paths pass scan_major=True and index [t, i].
+    produced in, and scan_major skips the [T,B]->[B,T] relayout of the
+    stacked byte planes. Throughput/bench paths pass scan_major=True
+    and index [t, i].
 
     With cfg.flat_stream, only window control scans over blocks and
     everything else runs once over the flattened [B*T] batch
     (analyze_stream_batched) — byte-identical to the per-block scan
-    (tests/test_stream_flat.py) but measured slower end-to-end on the
-    round-2 chip (NOTES.md), so the default is the per-block scan."""
+    (tests/test_stream_flat.py); the default is the per-block scan."""
     from ulcx.analysis.batched import analyze_stream_batched
 
     b, t = blocks.shape[0], blocks.shape[1]
@@ -300,7 +265,7 @@ def encode_stream_batched(blocks, cfg: CodecConfig, mode: str, carry=None,
 
     if cfg.flat_stream:
         carry, ab = analyze_stream_batched(carry, blocks, cfg)
-        if _use_kernel(cfg, b * t):
+        if _use_kernel(cfg):
             enc = _encode_analyzed_fast(ab, cfg, mode, **kw)
         else:
             enc = jax.vmap(lambda a: _encode_analyzed(a, cfg, mode, **kw))(ab)
@@ -327,7 +292,7 @@ def encode_stream_batched(blocks, cfg: CodecConfig, mode: str, carry=None,
         abf = jax.tree_util.tree_map(
             lambda x: x.reshape((t // fold, fold * b) + x.shape[2:]), abs_t
         )
-        if _use_kernel(cfg, fold * b):
+        if _use_kernel(cfg):
             enc_fn = lambda ab: _encode_analyzed_fast(ab, cfg, mode, **kw)
         else:
             enc_fn = jax.vmap(lambda ab: _encode_analyzed(ab, cfg, mode, **kw))
@@ -361,10 +326,8 @@ def encode_stream(blocks: jnp.ndarray, cfg: CodecConfig, mode: str, carry=None, 
     output is bit-invariant to how the stream is chunked, which the
     checkpoint/resume contract relies on), while the prepare/kernel/
     assemble bitstream stages run ONCE over all T blocks as a batch
-    (the Pallas kernel path engages on TPU when T % 8 == 0; the encode
-    tool pads its chunks to 64). The per-block-scan bitstream form
-    measured 0.2x REALTIME warm on the chip (NOTES.md round-4 log)
-    because every stage ran at batch 1.
+    rather than at batch 1 per block (the encode tool pads its chunks
+    to 64).
 
     cfg.flat_stream=True additionally folds ANALYSIS over blocks
     (fastest single-stream form) — but the batched transform's matmul

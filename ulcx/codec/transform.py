@@ -4,7 +4,7 @@ Wraps the frame-level MDCT/IMDCT (ulcx.ops.mdct) into whole-block
 operations under window switching. The window-control word selects one
 of 16 decimation patterns; since each pattern fixes every subblock size
 and offset, we dispatch through ``lax.switch`` so that *within a branch
-all shapes are static* — the TPU-native replacement for the reference's
+all shapes are static* — the batched replacement for the reference's
 nybble-walking subblock loops (reference
 libulc/ulcEncoder_BlockTransform.c:156-305, libulc/ulcDecoder.c:217-277).
 

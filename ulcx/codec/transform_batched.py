@@ -8,7 +8,7 @@ the four *size classes* N, N/2, N/4, N/8 at fixed offsets (15 candidate
 subblocks total), so we
 
 1. transform **every candidate subblock of every class** for the whole
-   batch (4 dense MXU matmuls; total work ~1.875x the single-pattern
+   batch (4 dense matmuls; total work ~1.875x the single-pattern
    minimum, fully batched, zero branches), with per-candidate boundary
    overlaps gathered from static tables, and
 2. **select per coefficient** which class's output is live for each
@@ -233,9 +233,8 @@ def block_mdct_mdst_batched(samples, window_ctrl, prev_last_ss, next_overlap, cf
         k += npos
 
     # per-coefficient class select: one-hot [B,16] matmul against the
-    # static class map (values 0..3, exact in f32) + a 3-where chain.
-    # Row gathers and [B,C,N,4] take_along_axis are catastrophically
-    # slow on this backend (NOTES.md).
+    # static class map (values 0..3, exact in f32) + a 3-where chain,
+    # in place of row gathers / a [B,C,N,4] take_along_axis.
     pat = window_ctrl >> 4
     oh = (pat[:, None] == jnp.arange(16)).astype(jnp.float32)
     cls_map = jnp.matmul(
@@ -268,10 +267,9 @@ def block_imdct_batched(coefs, window_ctrl, lap, prev_last_ss, cfg):
     # the lap buffer (identity prefix / reversed middle / shifted tail
     # around f_split = h - prev_last_ss/2) is a data-dependent gather —
     # but prev_last_ss takes only the 4 subblock size classes, so it
-    # becomes a 4-way select of statically sliced layouts (gathers with
-    # [B,C,N] indices are pathological on TPU; see NOTES.md).
-    # [B,16]->[B] index selects as where-sums (small, but gather
-    # lowerings carry a fixed cost on this backend; exact for these
+    # becomes a 4-way select of statically sliced layouts instead of a
+    # gather with [B,C,N] indices.
+    # [B,16]->[B] index selects as where-sums (exact for these
     # small-int overlap values)
     _i16 = jnp.arange(o_l.shape[1], dtype=jnp.int32)[None, :]
     first_ol = jnp.sum(

@@ -1,33 +1,49 @@
 """ctypes binding for the native I/O runtime (native/libulcio.so).
 
-Falls back transparently to the NumPy implementations in
-``ulcx.io.wavio`` when the shared library hasn't been built
-(``make -C native``). The conversions are bit-identical either way
-(same scalings and rounding as reference tools/WavIO_Helper.c).
+The library is built from native/ulcio.cpp with ``make -C native`` at
+first use. Falls back transparently to the NumPy implementations in
+``ulcx.io.wavio`` when it cannot be built. The conversions are
+bit-identical either way (same scalings and rounding as reference
+tools/WavIO_Helper.c).
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
+import subprocess
 
 import numpy as np
 
 _LIB = None
+_NATIVE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "native",
+)
+
+
+def _build(path: str) -> None:
+    """make -C native, once: concurrent first uses (test workers) wait
+    on a lock held on the Makefile."""
+    with open(os.path.join(_NATIVE_DIR, "Makefile"), "rb") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(path):
+            subprocess.run(
+                ["make", "-C", _NATIVE_DIR], check=True, capture_output=True
+            )
 
 
 def _load():
     global _LIB
     if _LIB is not None:
         return _LIB
-    path = os.path.join(
-        os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-        "native",
-        "libulcio.so",
-    )
+    path = os.path.join(_NATIVE_DIR, "libulcio.so")
     try:
+        if not os.path.exists(path):
+            _build(path)
         lib = ctypes.CDLL(path)
-    except OSError:
+    except (OSError, subprocess.CalledProcessError):
         _LIB = False
         return False
     u8 = ctypes.POINTER(ctypes.c_uint8)

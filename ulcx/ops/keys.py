@@ -6,10 +6,6 @@ compares these integer keys against per-candidate thresholds fetched
 from ONE stable sort, and the scan path ranks with a stable argsort of
 the float importance — the two agree bit-exactly only if the key map
 orders EXACTLY like jax's float comparator, ties included.
-
-(The in-VMEM bitonic sort kernels that once shared this module —
-ops/sortk.py — were retired after losing the end-to-end A/B twice;
-NOTES.md "sortk outcome" has the measurements, git history the code.)
 """
 
 from __future__ import annotations

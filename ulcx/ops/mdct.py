@@ -3,7 +3,7 @@
 This replaces the reference's external libfourier transforms
 (Fourier_MDCT_MDST / Fourier_IMDCT; used at reference
 libulc/ulcEncoder_BlockTransform.c:229 and libulc/ulcDecoder.c:243)
-with a TPU-native formulation. The bitstream-defined contract
+with a batched formulation. The bitstream-defined contract
 (reference FormatSpecs.md:24-28,148-157) is:
 
 - IMDCT basis  y[n] = -sum_k X[k] cos(pi/N (n+1/2+N/2)(k+1/2)),

@@ -7,7 +7,7 @@ pattern packs up to 4 subblocks, 4 bits each (LSB first):
     bit0..2: subblock shift  (subblock size = block_size >> shift)
     bit3:    transient flag  (overlap scaling applies to this subblock)
 
-On TPU we never walk this as a nybble loop: the pattern index
+We never walk this as a nybble loop: the pattern index
 (window_ctrl >> 4) is a traced integer selecting one of 16 *static*
 layouts via ``lax.switch``, so within every branch all subblock sizes
 and offsets are compile-time constants (static shapes for XLA).

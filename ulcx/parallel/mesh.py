@@ -3,9 +3,9 @@
 The codec's only meaningful distribution axis is the *stream batch*
 (the reference is a strictly sequential per-block streaming codec; see
 SURVEY.md §2): streams are independent, so we shard them over the mesh
-and let every chip run the identical block pipeline on its shard. No
-codec state ever crosses ICI — the only collectives are ``psum``s of
-bitrate/complexity metrics.
+and let every device run the identical block pipeline on its shard. No
+codec state ever crosses devices — the only collectives are ``psum``s
+of bitrate/complexity metrics.
 """
 
 from __future__ import annotations
@@ -33,8 +33,8 @@ def batch_encode(blocks, cfg: CodecConfig, mode: str, mesh: Mesh | None = None,
                  scan_major: bool = False, **kw):
     """Encode a batch of streams: blocks [B, T, C, N] -> EncodedBlock
     arrays with leading [B, T] ([T, B] with scan_major=True — skips the
-    output relayout, ~25% of the graph's compile time; see
-    encode_stream_batched), plus psum'd aggregate stats.
+    output relayout; see encode_stream_batched), plus psum'd aggregate
+    stats.
 
     Without a mesh this is a plain vmap; with a mesh the batch axis is
     sharded over it (pure DP, collective-free except metric reduction).
@@ -85,24 +85,14 @@ def batch_decode(
 ):
     """Decode a batch of padded byte streams [B, S] -> pcm [B, T, C, N]."""
     from ulcx.codec.decoder import decode_stream_batched
-    from ulcx.utils.config import mosaic_interpret as _mosaic_interpret
+    from ulcx.utils.config import kernel_mode
 
-    use_kernel = (
-        cfg.use_pallas != "off"
-        and (cfg.use_pallas == "on" or jax.default_backend() not in ("cpu",))
-        # the FSM carry packs pos in 15 bits (live only while active,
-        # where pos < p_tot): the full reference envelope P <= 32768
-        and cfg.n_chan * cfg.block_size <= 32768
-    )
+    mode = kernel_mode(cfg)
 
     def vmapped(ss):
-        if use_kernel:
+        if mode != "off":
             return decode_stream_batched(
-                ss,
-                n_blocks,
-                window_bytes,
-                cfg,
-                interpret=_mosaic_interpret(),
+                ss, n_blocks, window_bytes, cfg, interpret=mode == "interpret"
             )
         return jax.vmap(
             lambda s: decode_stream(s, n_blocks, window_bytes, cfg)[:3]

@@ -1,6 +1,6 @@
-"""ulcbatchtool — batched corpus encoder (the TPU-native headline mode).
+"""ulcbatchtool — batched corpus encoder (the headline batched mode).
 
-Encodes many WAV files simultaneously on one chip (or a mesh): all
+Encodes many WAV files simultaneously on one GPU (or a mesh): all
 files become one [streams, blocks, channels, block_size] batch, encoded
 by the fused kernel pipeline; every input gets its own `.ulc`.
 
@@ -9,8 +9,7 @@ Usage:
         [-blocksize:2048] [-chunk:16]
 
 rate_spec follows ulcencodetool (RateKbps[,AvgComplexity] | -Quality).
-All inputs must share sample rate and channel count (pad the batch to a
-multiple of 8 streams internally).
+All inputs must share sample rate and channel count.
 """
 
 from __future__ import annotations
@@ -27,10 +26,10 @@ from ulcx.utils.config import CodecConfig
 
 
 
-from ulcx.tools._runtime import setup_cli_runtime as _setup_jit_cache
+from ulcx.utils.compileopts import enable_compile_cache
 
 def main(argv=None) -> int:
-    _setup_jit_cache()
+    enable_compile_cache()
     argv = sys.argv if argv is None else argv
     if len(argv) < 4:
         print(__doc__)

@@ -67,10 +67,10 @@ def _parse_args(argv):
 
 
 
-from ulcx.tools._runtime import setup_cli_runtime as _setup_jit_cache
+from ulcx.utils.compileopts import enable_compile_cache
 
 def main(argv=None) -> int:
-    _setup_jit_cache()
+    enable_compile_cache()
     argv = sys.argv if argv is None else argv
     parsed = _parse_args(argv)
     if parsed is None:
@@ -103,7 +103,7 @@ def main(argv=None) -> int:
 
     from ulcx.utils.compileopts import jit_options
 
-    # Transfer lever 1 (NOTES.md round-5): PCM8/16 sources upload raw
+    # PCM8/16 sources upload raw
     # int8/int16 samples (1-2 bytes/sample instead of 4) and scale to
     # float ON DEVICE — int->f32 is exact, so encoded bytes are
     # bit-identical to the float upload path.
@@ -143,7 +143,7 @@ def main(argv=None) -> int:
     # the next WAV chunk while the device encodes the current one, and
     # each chunk's outputs are flushed only after the next chunk has
     # been dispatched (jax dispatch is async, so the device stays busy
-    # during host-side file writes). NOTES.md item 5.
+    # during host-side file writes).
     import queue as _queue
     import threading
 
@@ -178,7 +178,7 @@ def main(argv=None) -> int:
     def _flush(encoded, take):
         nonlocal total_bytes, max_bytes, cx_sum, done_blocks, last_print
         sizes = np.asarray(encoded.size_bits)[:take]
-        # Transfer lever 2 (NOTES.md round-5): fetch only the used
+        # Fetch only the used
         # prefix of the [chunk, max_block_bytes] byte planes — sizes
         # are known first, so slice on device before pulling. Rounding
         # the slice width to 512 bytes bounds the number of distinct

@@ -1,22 +1,12 @@
-"""Top-level XLA compile-effort knob.
+"""Compilation settings shared by the tools, the benchmark and the smoke
+run: XLA's compile-effort knob and the persistent compilation cache.
 
-Cold-start compile of the full batched encode graph costs minutes at
-XLA's default optimization effort (AOT figures in NOTES.md: 182-245 s
-deviceless for the headline configs). XLA exposes a documented effort
-scale via compiler options; ``exec_time_optimization_effort=-1.0``
-compiles the same VBR encode module in 27.9 s (6.5x less) — the
-runtime cost is measured on hardware by bench.py A/B (NOTES.md round-4
-log) and the knob is applied only where the caller opts in.
-
-Measured trade (chip bench, stereo CBR-128 bs2048 B=512 T=64):
-  effort default: encode 2602.7x rt   AOT compile 244.5 s
-  effort -0.5:    encode 1478.5x (-43%)            113.8 s
-  effort -1.0:    encode 1297.4x (-50%)             27.9 s
-So sub-zero effort is NEVER the default for throughput paths (bench,
-batch_tool). It IS the right default for the single-file CLI tools:
-a 3-minute WAV is < 1 s of chip compute even at the -1.0 throughput,
-while the compile saving is minutes of user-visible cold latency —
-the tools pass default="lo".
+Compile effort. XLA exposes a documented effort scale via compiler
+options; ``exec_time_optimization_effort=-1.0`` compiles the full
+encode graph several times faster at some cost in run time. Sub-zero
+effort is therefore never the default for throughput paths (bench,
+batch_tool); the single-file CLI tools, where cold latency is what the
+user waits for, pass default="lo".
 
 Env: ULCX_COMPILE_EFFORT
   unset / ""     -> the caller's default (None = XLA default effort)
@@ -24,6 +14,10 @@ Env: ULCX_COMPILE_EFFORT
   "lo"           -> exec_time_optimization_effort = -1.0
   "hi"           -> +1.0
   a float string -> that value
+
+Compilation cache. ``JAX_COMPILATION_CACHE_DIR`` when set, else the
+fixed directory ``<repo>/.jax_cache`` (a fixed path, because the path
+is part of the cache key).
 """
 
 from __future__ import annotations
@@ -31,6 +25,9 @@ from __future__ import annotations
 import os
 
 _NAMED = {"lo": -1.0, "hi": 1.0}
+_REPO = os.path.dirname(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+)
 
 
 def jit_options(default: str | None = None) -> dict | None:
@@ -47,3 +44,21 @@ def jit_options(default: str | None = None) -> dict | None:
                 f"ULCX_COMPILE_EFFORT={v!r}: use 'lo', 'hi', or a float"
             ) from None
     return {"exec_time_optimization_effort": effort}
+
+
+def compile_cache_dir() -> str:
+    """Where compiled programs persist across processes."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or os.path.join(
+        _REPO, ".jax_cache"
+    )
+
+
+def enable_compile_cache() -> str:
+    """Point JAX's persistent compilation cache at compile_cache_dir()
+    and return that directory."""
+    import jax
+
+    d = compile_cache_dir()
+    jax.config.update("jax_compilation_cache_dir", d)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    return d
